@@ -1,8 +1,9 @@
 """ddpm_ood_tpu_torch: the PyTorch/CUDA port of ddpm_ood_tpu for NVIDIA Hopper.
 
-It imports ``torch`` and never JAX. Its layout mirrors the JAX package, which
-stays the reference the port is tested against. The first slice is OOD
-scoring: ``python -m ddpm_ood_tpu_torch.reconstruct``.
+It imports ``torch`` and never JAX, nor anything of the JAX package. Its
+layout mirrors the JAX package, which stays the reference the port is tested
+against. It serves OOD scoring (``python -m ddpm_ood_tpu_torch.reconstruct``)
+and 2D DDPM training (``python -m ddpm_ood_tpu_torch.train_ddpm``).
 """
 
 __version__ = "0.1.0"

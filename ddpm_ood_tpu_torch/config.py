@@ -1,0 +1,308 @@
+"""Argparse surfaces of the port's CLIs: the same flags and defaults as the
+JAX package's ``train_ddpm.py`` and ``reconstruct.py``, so launch scripts work
+unchanged. A copy of ``ddpm_ood_tpu/config.py``'s ``parse_args_train_ddpm``
+and ``parse_args_reconstruct``: the port imports nothing of the JAX package.
+Tuple-ish flags are parsed with ast.literal_eval like the reference.
+
+Flags a slice of the port does not serve are still parsed here; the CLI that
+reads them raises NotImplementedError naming the flag.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+
+
+def _common_train_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--seed", type=int, default=2, help="Random seed to use.")
+    parser.add_argument("--output_dir", help="Location for models.")
+    parser.add_argument("--model_name", help="Name of model.")
+    parser.add_argument("--training_ids", help="Location of file with training ids.")
+    parser.add_argument("--validation_ids", help="Location of file with validation ids.")
+    parser.add_argument("--image_size", default=None, help="Resize images.")
+    parser.add_argument(
+        "--image_roi", default=None, type=ast.literal_eval,
+        help="Central ROI crop of inputs as a tuple; -1 leaves a dim uncropped.",
+    )
+
+
+def _ddpm_model_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--latent_pad", default=None, type=ast.literal_eval,
+        help="Padding applied to the latent so the UNet's downsamples divide evenly.",
+    )
+    parser.add_argument(
+        "--vqvae_checkpoint", default=None,
+        help="Path to a VQ-VAE checkpoint to train/evaluate an LDM.",
+    )
+    parser.add_argument(
+        "--prediction_type", default="epsilon",
+        help="epsilon, sample, or v_prediction.",
+    )
+    parser.add_argument("--model_type", default="small", help="Small or big model.")
+    parser.add_argument(
+        "--beta_schedule", default="linear_beta",
+        help="linear_beta or scaled_linear_beta (reference choices), or "
+        "cosine_beta (framework extension: Improved-DDPM cosine schedule, "
+        "arXiv:2102.09672; beta_start/beta_end ignored).",
+    )
+    parser.add_argument("--beta_start", type=float, default=1e-4, help="Beta start.")
+    parser.add_argument("--beta_end", type=float, default=2e-2, help="Beta end.")
+    parser.add_argument(
+        "--b_scale", type=float, default=1,
+        help="Scale the data by a factor b before noising.",
+    )
+    parser.add_argument(
+        "--snr_shift", type=float, default=1,
+        help="Shift the schedule SNR by a factor (for higher resolutions).",
+    )
+    parser.add_argument(
+        "--simplex_noise", type=int, default=0,
+        help="Use simplex instead of Gaussian noise.",
+    )
+    parser.add_argument(
+        "--remat", type=int, default=0,
+        help="Rematerialize UNet res/attention blocks in the backward pass "
+        "(framework extension): trades ~30%% extra FLOPs for a large activation-"
+        "memory cut, for big 3D configs whose activations exceed HBM.",
+    )
+
+
+def parse_args_train_ddpm(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Train a DDPM (or latent DDPM).")
+    _common_train_flags(parser)
+    parser.add_argument(
+        "--spatial_dimension", default=2, type=int, help="Dimension of images: 2d or 3d."
+    )
+    _ddpm_model_flags(parser)
+    parser.add_argument("--batch_size", type=int, default=512, help="Training batch size.")
+    parser.add_argument(
+        "--ema_decay", type=float, default=0.0,
+        help="Keep an exponential moving average of UNet weights with this "
+        "decay (framework extension; 0 disables, matching the reference, which "
+        "has no weight EMA). The EMA is updated inside the jitted step and "
+        "checkpointed as ema_model_state_dict; score with it via "
+        "reconstruct.py --use_ema 1.",
+    )
+    parser.add_argument(
+        "--grad_accum_steps", type=int, default=1,
+        help="Accumulate gradients over this many equal microbatches inside "
+        "the jitted train step (framework extension; lax.scan, one microbatch's "
+        "activations live at a time). Numerics match the full batch; batch_size "
+        "must be divisible by it. Lets one chip run the reference's global "
+        "batch when activations exceed HBM (composable with --remat).",
+    )
+    parser.add_argument(
+        "--fsdp", type=int, default=0,
+        help="Shard UNet params + optimizer state (+ weight EMA) along the "
+        "data mesh axis (framework extension, parallel/fsdp.py): the ZeRO-3/"
+        "FSDP pattern — GSPMD inserts the all-gathers before use and "
+        "reduce-scatters after the backward from the input shardings alone. "
+        "Numerics match replicated DP (tests/test_fsdp.py); reclaims "
+        "per-chip static HBM on multi-device meshes.",
+    )
+    parser.add_argument(
+        "--learning_rate", type=float, default=2.5e-5,
+        help="Adam learning rate (the reference hardcodes 2.5e-5, "
+        "base.py:156 — that stays the default).",
+    )
+    parser.add_argument(
+        "--lr_warmup_steps", type=int, default=0,
+        help="Linearly ramp the learning rate from 0 over this many optimizer "
+        "steps, then hold (framework extension; 0 = constant lr like the "
+        "reference; off keeps the reference-era optimizer checkpoint schema).",
+    )
+    parser.add_argument("--n_epochs", type=int, default=300, help="Number of epochs to train.")
+    parser.add_argument(
+        "--eval_freq", type=int, default=10, help="Epochs between evaluations."
+    )
+    parser.add_argument(
+        "--augmentation", type=int, default=1, help="Use of augmentation, 1 or 0."
+    )
+    parser.add_argument("--num_workers", type=int, default=8, help="Number of loader workers")
+    parser.add_argument(
+        "--cache_data", type=int, default=1, help="Cache data in the loader."
+    )
+    parser.add_argument(
+        "--checkpoint_every", type=int, default=100,
+        help="Save a checkpoint every checkpoint_every epochs.",
+    )
+    parser.add_argument(
+        "--ddpm_checkpoint_epoch", default=None,
+        help="Epoch number of a specific checkpoint to resume from (default: best).",
+    )
+    parser.add_argument("--is_grayscale", type=int, default=0, help="Is data grayscale.")
+    parser.add_argument(
+        "--quick_test", type=int, default=0,
+        help="Run a single batch of the train and eval loops.",
+    )
+    parser.add_argument(
+        "--profile_dir", default=None,
+        help="Capture a jax.profiler device trace of a few warm train steps into "
+        "this directory (framework extension; TensorBoard-loadable).",
+    )
+    return parser.parse_args(argv)
+
+
+def parse_args_reconstruct(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Reconstruct val/in/out datasets from many start timesteps."
+    )
+    parser.add_argument("--seed", type=int, default=2, help="Random seed to use.")
+    parser.add_argument("--output_dir", help="Location for models.")
+    parser.add_argument("--model_name", help="Name of model.")
+    parser.add_argument("--validation_ids", help="Location of file with validation ids.")
+    parser.add_argument("--in_ids", help="Location of file with in-distribution ids.")
+    parser.add_argument(
+        "--out_ids",
+        help="List of the OOD split CSVs, comma separated; `_vflip`/`_hflip` "
+        "suffixes score flipped versions of a split.",
+    )
+    parser.add_argument(
+        "--spatial_dimension", default=2, type=int, help="Dimension of images: 2d or 3d."
+    )
+    parser.add_argument("--image_size", default=None, help="Resize images.")
+    parser.add_argument(
+        "--image_roi", default=None, type=ast.literal_eval,
+        help="Central ROI crop of inputs as a tuple.",
+    )
+    _ddpm_model_flags(parser)
+    parser.add_argument("--batch_size", type=int, default=512, help="Batch size.")
+    parser.add_argument(
+        "--augmentation", type=int, default=1, help="Use of augmentation, 1 or 0."
+    )
+    parser.add_argument("--num_workers", type=int, default=8, help="Number of loader workers")
+    parser.add_argument(
+        "--cache_data", type=int, default=1, help="Cache data in the loader."
+    )
+    parser.add_argument(
+        "--first_n_val", default=None,
+        help="Only run reconstructions on the first n val samples.",
+    )
+    parser.add_argument(
+        "--first_n", default=None,
+        help="Only run reconstructions on the first n in/out samples.",
+    )
+    parser.add_argument(
+        "--ddpm_checkpoint_epoch", default=None,
+        help="Epoch of a specific checkpoint to reconstruct with (default: best).",
+    )
+    parser.add_argument(
+        "--eval_checkpoint", default=None,
+        help="Alias of --ddpm_checkpoint_epoch (reference reconstruct.py:115-121).",
+    )
+    parser.add_argument("--drop_last", default=False, help="Drop last incomplete batch.")
+    parser.add_argument("--is_grayscale", type=int, default=0, help="Is data grayscale.")
+    parser.add_argument("--run_val", type=int, default=1, help="Run reconstructions on val set.")
+    parser.add_argument("--run_in", type=int, default=1, help="Run reconstructions on in set.")
+    parser.add_argument("--run_out", type=int, default=1, help="Run reconstructions on out set.")
+    parser.add_argument(
+        "--num_inference_steps", type=int, default=100,
+        help="Number of PLMS sampler steps.",
+    )
+    parser.add_argument(
+        "--inference_skip_factor", type=int, default=1,
+        help="Only reconstruct from every n-th start timestep.",
+    )
+    parser.add_argument(
+        "--sampler", default="plms", choices=("plms", "plms_ref", "ddim", "dpm"),
+        help="Reconstruction sampler (framework extension; the reference is "
+        "PLMS-only). 'plms' = batched sweep with a fresh epsilon history per "
+        "start point; 'plms_ref' = the reference's exact carried-history "
+        "semantics (sequential, for parity quantification); 'ddim' is "
+        "deterministic and cheaper per step; 'dpm' = DPM-Solver++(2M), "
+        "comparable quality at ~4x fewer --num_inference_steps.",
+    )
+    parser.add_argument(
+        "--score_elbo", type=int, default=0,
+        help="Framework extension: also emit the per-(image, t) variational-"
+        "bound KL term (bits/dim, diffusion/elbo.py) as an 'elbo' column in "
+        "the results CSVs — likelihood-based OOD scoring beside the "
+        "reconstruction metrics, at ~2%% extra sweep cost. Score with "
+        "ood_detection.py --plot_target=elbo (or mse+elbo).",
+    )
+    parser.add_argument(
+        "--score_ssim", type=int, default=0,
+        help="Framework extension: also emit per-(image, t) 1-SSIM "
+        "(Gaussian-window structural dissimilarity, ops/ssim.py) as an "
+        "'ssim_distance' column in the results CSVs — a third similarity "
+        "family beside mse/LPIPS, metrics-tail only (no extra UNet evals). "
+        "Score with ood_detection.py --plot_target=ssim_distance (or "
+        "mse+ssim).",
+    )
+    parser.add_argument(
+        "--save_error_maps", type=int, default=0,
+        help="Framework extension: save per-image anomaly-LOCALIZATION "
+        "heatmaps — the per-pixel squared reconstruction error, mean over "
+        "every start point — to ood/error_maps/<dataset>/<stem>.{npy,png} "
+        "(middle-slice PNG for 3D). The reference emits per-image scalars "
+        "only; this shows WHERE the input deviates. Metrics-tail only, no "
+        "extra UNet evals. Not available with --sampler=plms_ref.",
+    )
+    parser.add_argument(
+        "--simplex_noise_mode", default="exact", choices=("exact", "device"),
+        help="With --simplex_noise: 'exact' draws bit-faithful OpenSimplex "
+        "planes with the native C++ kernel on the host (the reference's "
+        "scoring-time noise, reconstruct.py:130-142); 'device' uses the "
+        "on-device statistical stand-in (faster, not bit-identical).",
+    )
+    parser.add_argument(
+        "--profile_dir", default=None,
+        help="Capture a jax.profiler device trace of one warm (already-"
+        "compiled) sweep batch into this directory (framework extension; "
+        "TensorBoard-loadable).",
+    )
+    parser.add_argument(
+        "--use_ema", type=int, default=0,
+        help="Reconstruct with the checkpoint's EMA weights "
+        "(ema_model_state_dict, written by train_ddpm.py --ema_decay > 0) "
+        "instead of the raw training weights. Framework extension.",
+    )
+    parser.add_argument(
+        "--quantize", default="none", choices=("none", "int8", "w8", "mixed"),
+        help="Framework extension: post-training quantization of the UNet "
+        "block convolutions for the scoring sweep (ops/quant.py). int8: "
+        "s8 x s8 -> s32 on the MXU (2x bf16 peak on v5e); w8: weight-only "
+        "int8 (see ops/quant.py:wconv for the honest TPU semantics); mixed: "
+        "s8 x s8 only at >=512-wide convs where the lowering wins, bf16 "
+        "elsewhere (models/unet.py:MIXED_QUANT_MIN_CH). Same checkpoint, no "
+        "calibration; validate quality via scripts/quality_check.py "
+        "--quantize <mode>.",
+    )
+    parser.add_argument(
+        "--recon_groups", default="auto",
+        help="Lane groups in the batched sweep (framework extension): more "
+        "groups = less masked-lane waste but one compile per group. 'auto' "
+        "(default) picks the v5e-autotuned optimum per dimensionality — 16 "
+        "for 2D, 3 for 3D (scripts/autotune_sweep.py grids, DESIGN.md) — or "
+        "pass an integer.",
+    )
+    parser.add_argument(
+        "--aot_cache", default=None,
+        help="Framework extension: path PREFIX for AOT sweep artifacts "
+        "(recon/aot.py). Per (sampler, steps, skip factor, batch) geometry, "
+        "the compiled lane-group executables are saved to "
+        "<prefix>.<sampler><steps>.skip<K>.b<B>.aot (recon/aot.py:"
+        "artifact_path) on the first run and LOADED (zero tracing, zero XLA "
+        "compiles) on "
+        "restarts. Pinned to jax version + backend + geometry; weights stay "
+        "call-time inputs. Single-process only (the multi-process path owns "
+        "its compile-then-barrier choreography).",
+    )
+    parser.add_argument(
+        "--resume", type=int, default=0,
+        help="Framework extension: crash-safe dataset passes. Scored rows "
+        "are always flushed to a per-host partial CSV after every batch "
+        "(trainers/reconstruct.py:_CsvSink); with --resume=1 a restart "
+        "reloads that partial, skips images whose full t_start grid is "
+        "already persisted, and completes the pass without rescoring them. "
+        "The reference buffers the whole pass in memory and writes once at "
+        "the end (src/trainers/reconstruct.py:252-330), so a mid-run failure "
+        "there loses the entire pass.",
+    )
+    args = parser.parse_args(argv)
+    if args.eval_checkpoint and not args.ddpm_checkpoint_epoch:
+        args.ddpm_checkpoint_epoch = args.eval_checkpoint
+    return args
+

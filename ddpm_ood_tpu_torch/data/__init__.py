@@ -1,3 +1,3 @@
-from .loader import EvalLoader
+from .loader import DataLoader, get_training_data_loader
 
-__all__ = ["EvalLoader"]
+__all__ = ["DataLoader", "get_training_data_loader"]

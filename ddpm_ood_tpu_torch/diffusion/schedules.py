@@ -150,3 +150,22 @@ def epsilon_from_model_output(sched: NoiseSchedule, model_output: torch.Tensor,
     if ptype == "v_prediction":
         return torch.sqrt(acp) * model_output + torch.sqrt(1.0 - acp) * x_t
     raise ValueError(f"Unknown prediction type: {ptype!r}")
+
+
+def velocity_from_x0_eps(sched: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
+                         t) -> torch.Tensor:
+    """v-prediction target: v = sqrt(acp) eps - sqrt(1 - acp) x0."""
+    acp = _gather(sched.alphas_cumprod, t, x0.dim())
+    return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * x0
+
+
+def training_target(sched: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
+                    t) -> torch.Tensor:
+    """The regression target for the schedule's prediction type."""
+    if sched.prediction_type == "epsilon":
+        return noise
+    if sched.prediction_type == "sample":
+        return x0
+    if sched.prediction_type == "v_prediction":
+        return velocity_from_x0_eps(sched, x0, noise, t)
+    raise ValueError(f"Unknown prediction type: {sched.prediction_type!r}")

@@ -282,3 +282,25 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             v = 0.1 * torch.randn(p.shape, generator=generator)
         p.copy_(v)
     return model
+
+
+@torch.no_grad()
+def jax_like_init_(model: DiffusionModelUNet, generator: torch.Generator) -> DiffusionModelUNet:
+    """The JAX package's flax initialisation, drawn from a torch generator:
+    conv and linear weights lecun_normal (a normal of std sqrt(1 / fan_in),
+    truncated at two standard deviations and rescaled as flax does), biases
+    0, GroupNorm scales 1, and the output conv's weight 0, so a fresh model
+    predicts 0. The draws differ from JAX's; the distribution is the same."""
+    std_correction = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+    lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
+    for name, p in model.named_parameters():
+        if p.dim() > 1:
+            std = math.sqrt(1.0 / math.prod(p.shape[1:])) / std_correction
+            u = lo + (hi - lo) * torch.rand(p.shape, generator=generator)  # inverse CDF
+            p.copy_(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * std)
+        elif name.endswith("weight"):  # GroupNorm scale
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    model.out[2].conv.weight.zero_()
+    return model

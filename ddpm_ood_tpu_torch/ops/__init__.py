@@ -1,7 +1,14 @@
 """Operators with hand-written CUDA kernels, each beside its plain PyTorch version."""
 
 from ._kernels import KernelBuildError, KernelLaunchError
-from .attention import attention, einsum_attention, flash_attention_fwd
+from .attention import (
+    attention,
+    einsum_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+)
 from .groupnorm import groupnorm_act, groupnorm_act_reference
 
 __all__ = [
@@ -9,6 +16,9 @@ __all__ = [
     "KernelLaunchError",
     "attention",
     "einsum_attention",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "groupnorm_act",
     "groupnorm_act_reference",

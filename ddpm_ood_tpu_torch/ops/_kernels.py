@@ -107,6 +107,10 @@ def library() -> ctypes.CDLL:
     lib.ddpm_groupnorm_act.restype = i
     lib.ddpm_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, i, p]
     lib.ddpm_flash_attn_fwd.restype = i
+    lib.ddpm_flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
+    lib.ddpm_flash_attn_bwd_dkv.restype = i
+    lib.ddpm_flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, i, p]
+    lib.ddpm_flash_attn_bwd_dq.restype = i
     lib.ddpm_cuda_error_string.argtypes = [i]
     lib.ddpm_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,6 +5,8 @@ package's layout, x of shape (B, *spatial, C), and gamma/beta of shape (C,)
 in fp32. On a CUDA tensor it launches the hand-written kernel
 ``csrc/groupnorm.cu`` (or raises); on a CPU tensor it runs
 ``groupnorm_act_reference``, the plain PyTorch version of the same math.
+On CUDA the kernel sits in a ``torch.autograd.Function`` whose backward is
+the VJP of the plain version, as in the JAX package.
 The UNet runs in ``torch.channels_last``, so its (B, C, H, W) activations
 permuted to (B, H, W, C) are already contiguous and reach the kernel without
 a copy.
@@ -61,23 +63,8 @@ def _check_cuda_args(x, gamma, beta, num_groups, act):
         raise ValueError("groupnorm_act: x must be contiguous channel-last (B, *spatial, C)")
 
 
-def groupnorm_act(
-    x: torch.Tensor,
-    gamma: torch.Tensor,
-    beta: torch.Tensor,
-    num_groups: int,
-    eps: float = 1e-6,
-    act: str = "none",
-) -> torch.Tensor:
-    """GroupNorm (+ SiLU) over channel-last x (B, *spatial, C).
-
-    CPU tensors take the plain version; CUDA tensors the kernel, which counts
-    its launches in ``groupnorm_act.launches``. Anything else raises."""
-    if x.device.type == "cpu":
-        return groupnorm_act_reference(x, gamma, beta, num_groups, eps, act)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"groupnorm_act: no kernel for device {x.device}")
-    _check_cuda_args(x, gamma, beta, num_groups, act)
+def _launch(x, gamma, beta, num_groups, eps, act):
+    """One launch of the CUDA kernel; counts it in ``groupnorm_act.launches``."""
     b, c = x.shape[0], x.shape[-1]
     n = math.prod(x.shape[1:-1])
     out = torch.empty_like(x)
@@ -90,6 +77,49 @@ def groupnorm_act(
     _kernels.check_rc(lib, rc, "groupnorm_act")
     groupnorm_act.launches += 1
     return out
+
+
+class _GroupNormAct(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: the VJP of
+    ``groupnorm_act_reference``, recomputed from the saved x, gamma, beta, as
+    the JAX package's ``_fused_bwd`` does; there is no backward kernel to
+    port."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, act):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.cfg = (num_groups, eps, act)
+        return _launch(x, gamma, beta, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad(), torch.autocast(device_type=x.device.type, enabled=False):
+            inputs = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+            y = groupnorm_act_reference(*inputs, *ctx.cfg)
+            grads = torch.autograd.grad(y, inputs, grad)
+        return (*grads, None, None, None)
+
+
+def groupnorm_act(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    num_groups: int,
+    eps: float = 1e-6,
+    act: str = "none",
+) -> torch.Tensor:
+    """GroupNorm (+ SiLU) over channel-last x (B, *spatial, C).
+
+    CPU tensors take the plain version; CUDA tensors the kernel, which counts
+    its launches in ``groupnorm_act.launches`` and is differentiable in x,
+    gamma and beta. Anything else raises."""
+    if x.device.type == "cpu":
+        return groupnorm_act_reference(x, gamma, beta, num_groups, eps, act)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"groupnorm_act: no kernel for device {x.device}")
+    _check_cuda_args(x, gamma, beta, num_groups, act)
+    return _GroupNormAct.apply(x, gamma, beta, num_groups, eps, act)
 
 
 groupnorm_act.launches = 0

@@ -3,7 +3,7 @@
     python -m ddpm_ood_tpu_torch.reconstruct [reconstruct.py flags] [--device=cuda|cpu]
 
 It takes the JAX package's ``reconstruct.py`` flags
-(``ddpm_ood_tpu.config.parse_args_reconstruct``) plus ``--device``
+(``config.parse_args_reconstruct``, a copy of the JAX package's parser) plus ``--device``
 (default ``cuda``, which raises when there is no card). Flags the port does
 not serve yet raise NotImplementedError naming the flag.
 """
@@ -14,8 +14,7 @@ import argparse
 import logging
 import sys
 
-from ddpm_ood_tpu.config import parse_args_reconstruct
-
+from .config import parse_args_reconstruct
 from .trainers.base import resolve_device
 from .trainers.reconstruct import Reconstruct
 

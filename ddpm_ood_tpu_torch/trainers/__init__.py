@@ -1,4 +1,5 @@
 from .base import BaseTrainer
+from .ddpm_trainer import DDPMTrainer
 from .reconstruct import Reconstruct
 
-__all__ = ["BaseTrainer", "Reconstruct"]
+__all__ = ["BaseTrainer", "DDPMTrainer", "Reconstruct"]

@@ -1,9 +1,13 @@
-"""BaseTrainer: model, schedule and checkpoint wiring for scoring.
+"""BaseTrainer: model, schedule, checkpoint and training-state wiring.
 
-Port of the parts of ``ddpm_ood_tpu/trainers/base.py`` that ``Reconstruct``
-needs: the UNet preset, the noise schedule, checkpoint discovery and
-loading (``--use_ema`` included). There is no mesh, no FSDP and no
-optimizer state: the port runs one process on one device.
+Port of ``ddpm_ood_tpu/trainers/base.py`` for one process on one device:
+the UNet preset, the noise schedule, checkpoint discovery and loading
+(``--use_ema`` included) for scoring, and for training (``training=True``)
+the state the JAX package keeps in its ``TrainState``: Adam, the weight-EMA
+slot, ``start_epoch``, ``global_step`` (counted in images, as the
+reference), ``best_loss`` (1000.0 on a fresh run), resume from the
+checkpoint ``find_checkpoint`` picks, and ``save_checkpoint`` in the
+reference schema. There is no mesh and no FSDP.
 
 Precision: on CUDA the UNet computes in bf16 (``torch.autocast``) with its
 parameters in fp32 and GroupNorm statistics in fp32, as the JAX package
@@ -14,12 +18,15 @@ for fp32 matmuls and convolutions alike, so fp32 means fp32.
 from __future__ import annotations
 
 import logging
+import os
 from pathlib import Path
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..diffusion.schedules import make_schedule
-from ..models.unet import make_unet
+from ..models.unet import jax_like_init_, make_unet
+from ..train.ddpm import DDPMTrainStep
 from ..utils import checkpoint as ckpt
 
 log = logging.getLogger(__name__)
@@ -39,8 +46,22 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def refuse_flags(args, refused: Sequence[Tuple[str, bool, str]]) -> None:
+    """Raise NotImplementedError naming the first (flag, is_set, why) that is
+    set, or a multi-process launch: the port runs one process."""
+    for name, on, why in refused:
+        if on:
+            raise NotImplementedError(
+                f"{name}={getattr(args, name[2:], None)} is not ported to ddpm_ood_tpu_torch"
+                + (f" ({why})" if why else ""))
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if world > 1:
+        raise NotImplementedError(
+            f"more than one process (WORLD_SIZE={world}) is not ported: run one process")
+
+
 class BaseTrainer:
-    def __init__(self, args, device: torch.device):
+    def __init__(self, args, device: torch.device, training: bool = False):
         log.info(f"Arguments: {args}")
         self.device = device
         self.spatial_dimension = int(args.spatial_dimension)
@@ -73,14 +94,29 @@ class BaseTrainer:
         self.use_ema = bool(getattr(args, "use_ema", 0))
         epoch = getattr(args, "ddpm_checkpoint_epoch", None)
         path = ckpt.find_checkpoint(self.run_dir, int(epoch) if epoch else None)
-        if path is not None:
-            self._load(path)
-        self.unet = self.unet.to(device, memory_format=torch.channels_last).eval()
+        if training:
+            jax_like_init_(self.unet, torch.Generator().manual_seed(int(args.seed)))
+            self.unet = self.unet.to(device, memory_format=torch.channels_last)
+            self.step = DDPMTrainStep(
+                model=self.unet, sched=self.sched, b_scale=self.b_scale,
+                learning_rate=float(args.learning_rate),
+                lr_warmup_steps=int(args.lr_warmup_steps),
+                ema_decay=float(args.ema_decay),
+                grad_accum=int(args.grad_accum_steps or 1),
+                autocast_dtype=self.autocast_dtype,
+            )
+            self.start_epoch, self.global_step, self.best_loss = 0, 0, 1000.0
+            if path is not None:
+                self._resume(path)
+        else:
+            if path is not None:
+                self._load(path)
+            self.unet = self.unet.to(device, memory_format=torch.channels_last).eval()
         n_params = sum(p.numel() for p in self.unet.parameters())
         log.info(f"{n_params:,} model parameters on {device}")
 
     def _load(self, path: Path) -> None:
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        payload = ckpt.load_checkpoint(path)
         key = "model_state_dict"
         if self.use_ema:
             if "ema_model_state_dict" not in payload:
@@ -90,6 +126,37 @@ class BaseTrainer:
             log.info("Using EMA weights (ema_model_state_dict) for the model")
         self.unet.load_state_dict(payload[key], strict=True)
         log.info(f"Loaded checkpoint {path} (epoch {payload.get('epoch')})")
+
+    def _resume(self, path: Path) -> None:
+        """Model, Adam, EMA, epoch, step count and best loss from `path`. A
+        checkpoint without an EMA slot seeds the EMA from its weights."""
+        payload = ckpt.load_checkpoint(path)
+        self.unet.load_state_dict(payload["model_state_dict"], strict=True)
+        self.step.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        if self.step.ema is not None:
+            ema = payload.get("ema_model_state_dict", payload["model_state_dict"])
+            for name, t in self.step.ema.items():
+                t.copy_(ema[name])
+        self.start_epoch = int(payload["epoch"])
+        self.global_step = int(payload["global_step"])
+        self.best_loss = float(payload["best_loss"])
+        log.info(f"Resuming training using checkpoint {path} at epoch {self.start_epoch}")
+
+    def save_checkpoint(self, name: str, epoch: int, save_message: Optional[str] = None) -> Path:
+        """``<run>/<name>.pth`` in the reference schema; epoch + 1, so a resume
+        starts on the next epoch."""
+        if save_message:
+            log.info(save_message)
+        payload = {
+            "epoch": int(epoch) + 1,
+            "global_step": int(self.global_step),
+            "model_state_dict": self.unet.state_dict(),
+            "optimizer_state_dict": self.step.optimizer.state_dict(),
+            "best_loss": float(self.best_loss),
+        }
+        if self.step.ema is not None:
+            payload["ema_model_state_dict"] = dict(self.step.ema)
+        return ckpt.write_checkpoint(self.run_dir / f"{name}.pth", payload)
 
     def model_fn(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """UNet forward on (N, C, *spatial) channels_last input."""

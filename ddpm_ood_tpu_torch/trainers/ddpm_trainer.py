@@ -1,0 +1,180 @@
+"""DDPM trainer: epoch loop, checkpoint policy, logged metrics.
+
+Port of ``ddpm_ood_tpu/trainers/ddpm_trainer.py`` for 2D pixel-space models
+with Gaussian noise, on one device:
+  - the epoch loop keeps the reference's policy: the rolling ``checkpoint``
+    is the best on TRAIN loss, ``checkpoint_{N}`` is written every
+    ``--checkpoint_every`` epochs, validation runs every ``--eval_freq``;
+  - per step: t ~ U[0, T) and Gaussian noise from the trainer's generator,
+    then ``DDPMTrainStep.step`` (noising, MSE on the prediction type's
+    target, backward, Adam, EMA); ``global_step`` counts images;
+  - per-step train losses stay on the device and are read 32 at a time, so
+    the host does not wait for the device at every step;
+  - validation logs the mean loss and an ancestral sample grid
+    (``diffusion/ddpm.py:ddpm_sample``) saved as ``val/samples_<step>.npy``;
+  - ``--quick_test`` runs one batch of each loop; SIGTERM finishes the epoch,
+    checkpoints and stops (``utils/preemption.py``).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..data.loader import get_training_data_loader
+from ..diffusion.ddpm import ddpm_sample
+from ..train.ddpm import channels_last
+from ..utils.logging import Logger
+from ..utils.preemption import PreemptionGuard, checkpoint_if_preempted
+from .base import BaseTrainer, refuse_flags
+
+log = logging.getLogger(__name__)
+
+NOISE_SEED = 1234  # the JAX trainer's PRNGKey(1234 + process_index), one process
+LOSS_CHUNK = 32  # device losses read per host sync
+
+
+def refuse_unported_train_flags(args) -> None:
+    """Raise NotImplementedError naming the first flag this slice does not serve."""
+    refuse_flags(args, [
+        ("--simplex_noise", bool(args.simplex_noise), "Gaussian noise only"),
+        ("--vqvae_checkpoint", bool(args.vqvae_checkpoint), "latent diffusion"),
+        ("--latent_pad", bool(args.latent_pad), "latent diffusion"),
+        ("--spatial_dimension", int(args.spatial_dimension) != 2, "2D only"),
+        ("--fsdp", bool(args.fsdp), "one device"),
+        ("--remat", bool(args.remat), ""),
+        ("--profile_dir", bool(args.profile_dir), ""),
+    ])
+
+
+class DDPMTrainer(BaseTrainer):
+    def __init__(self, args, device: torch.device):
+        refuse_unported_train_flags(args)
+        grad_accum = int(args.grad_accum_steps or 1)
+        if grad_accum > 1 and args.batch_size % grad_accum != 0:
+            raise ValueError(f"--batch_size {args.batch_size} is not divisible by "
+                             f"--grad_accum_steps {grad_accum}")
+        super().__init__(args, device, training=True)
+        self.logger_train = Logger(self.run_dir / "train")
+        self.logger_val = Logger(self.run_dir / "val")
+        self.train_loader, self.val_loader = get_training_data_loader(
+            batch_size=args.batch_size,
+            training_ids=args.training_ids,
+            validation_ids=args.validation_ids,
+            augmentation=bool(args.augmentation),
+            num_workers=args.num_workers,
+            cache_data=bool(args.cache_data),
+            is_grayscale=self.is_grayscale,
+            image_size=self.image_size,
+            image_roi=self.image_roi,
+            spatial_dimension=self.spatial_dimension,
+        )
+        self.generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
+        self.quick_test = bool(args.quick_test)
+        self.sample_forwards = 0  # UNet forwards of the validation sampler
+        self.epoch_times: List[Tuple[int, float]] = []  # (images, seconds) per train epoch
+
+    def _to_device(self, images: np.ndarray) -> torch.Tensor:
+        return channels_last(torch.from_numpy(images).to(self.device, non_blocking=True))
+
+    # ------------------------------------------------------------------ train --
+    def train(self, args) -> None:
+        guard = PreemptionGuard().install()
+        try:
+            for epoch in range(self.start_epoch, args.n_epochs):
+                epoch_loss = self.train_epoch(epoch)
+                if epoch_loss < self.best_loss:
+                    self.best_loss = epoch_loss
+                    self.save_checkpoint("checkpoint", epoch,
+                                         f"Saving checkpoint for model with best loss {epoch_loss}")
+                if (epoch + 1) % args.checkpoint_every == 0:
+                    self.save_checkpoint(f"checkpoint_{epoch + 1}", epoch,
+                                         f"Saving checkpoint at epoch {epoch + 1}")
+                if checkpoint_if_preempted(guard, self, epoch, args):
+                    break
+                if (epoch + 1) % args.eval_freq == 0:
+                    self.val_epoch(epoch)
+        finally:
+            guard.uninstall()
+            self.logger_train.close()
+            self.logger_val.close()
+        log.info("Training completed.")
+
+    def train_epoch(self, epoch: int) -> float:
+        self.unet.train()
+        epoch_loss, epoch_images = 0.0, 0
+        t0 = time.perf_counter()
+        pending = []  # (global_step, batch size, loss on the device)
+
+        def flush():
+            nonlocal epoch_loss
+            if not pending:
+                return
+            values = torch.stack([loss for _, _, loss in pending]).tolist()  # one sync
+            for (gstep, bsz, _), val in zip(pending, values):
+                epoch_loss += val * bsz
+                self.logger_train.add_scalar("loss", val, gstep)
+            pending.clear()
+
+        for batch in self.train_loader:
+            x0 = self._to_device(batch["image"])
+            t, noise = self.step.draw(x0, self.generator)
+            loss = self.step.step(x0, t, noise)
+            bsz = x0.shape[0]
+            self.global_step += bsz
+            epoch_images += bsz
+            pending.append((self.global_step, bsz, loss))
+            if len(pending) >= LOSS_CHUNK:
+                flush()
+            if self.quick_test:
+                break
+        flush()
+        self.logger_train.flush()
+        dt = time.perf_counter() - t0
+        self.epoch_times.append((epoch_images, dt))
+        mean = epoch_loss / max(epoch_images, 1)
+        log.info(f"Epoch {epoch}: train loss {mean:.6f} ({epoch_images} images in {dt:.1f}s, "
+                 f"{epoch_images / max(dt, 1e-9):.1f} img/s)")
+        return mean
+
+    # -------------------------------------------------------------------- val --
+    def val_epoch(self, epoch: int) -> None:
+        self.unet.eval()
+        total, count = 0.0, 0
+        last_batch = None
+        for batch in self.val_loader:
+            x0 = self._to_device(batch["image"])
+            t, noise = self.step.draw(x0, self.generator)
+            total += float(self.step.eval_loss(x0, t, noise)) * x0.shape[0]
+            count += x0.shape[0]
+            last_batch = x0
+            if self.quick_test:
+                break
+        log.info(f"Epoch {epoch}: val loss {total / max(count, 1):.6f}")
+        self.logger_val.add_scalar("loss", total / max(count, 1), self.global_step)
+        if last_batch is not None:
+            self.sample_grid(last_batch)
+        self.logger_val.flush()
+
+    @torch.no_grad()
+    def sample_grid(self, images: torch.Tensor) -> np.ndarray:
+        """Ancestral samples of up to 8 images, /b_scale and clipped to
+        [0, 1], saved as (num, *spatial, C) float32 beside the val scalars."""
+        num = min(8, images.shape[0])
+        noise = channels_last(torch.randn((num,) + tuple(images.shape[1:]),
+                                          generator=self.generator, device=self.device))
+
+        def model_fn(x, t):
+            self.sample_forwards += 1
+            return self.unet(x, t)
+
+        with self.step.autocast(self.device):
+            samples = ddpm_sample(self.sched, model_fn, noise, self.generator)
+        grid = np.clip(np.moveaxis((samples / self.b_scale).float().cpu().numpy(), 1, -1), 0, 1)
+        path = self.logger_val.add_figure("samples", grid, self.global_step)
+        log.info(f"Wrote the sample grid {path}")
+        return grid

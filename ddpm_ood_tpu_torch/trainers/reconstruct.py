@@ -25,12 +25,12 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from ddpm_ood_tpu.data.transforms import TransformChain
 
-from ..data.loader import EvalLoader
+from ..data.loader import DataLoader
+from ..data.transforms import TransformChain
 from ..recon.sweep import ReconProgram
 from ..utils.checkpoint import find_checkpoint, missing_checkpoint_error
-from .base import BaseTrainer
+from .base import BaseTrainer, refuse_flags
 
 log = logging.getLogger(__name__)
 
@@ -43,7 +43,7 @@ def refuse_unported_flags(args) -> None:
     def flag(name, default=None):
         return getattr(args, name, default)
 
-    refused = [
+    refuse_flags(args, [
         ("--sampler", flag("sampler", "plms") != "plms", "only plms is ported"),
         ("--score_elbo", bool(flag("score_elbo", 0)), ""),
         ("--score_ssim", bool(flag("score_ssim", 0)), ""),
@@ -57,17 +57,7 @@ def refuse_unported_flags(args) -> None:
         ("--vqvae_checkpoint", bool(flag("vqvae_checkpoint")), "latent diffusion"),
         ("--latent_pad", bool(flag("latent_pad")), "latent diffusion"),
         ("--remat", bool(flag("remat", 0)), ""),
-    ]
-    for name, on, why in refused:
-        if on:
-            value = flag(name[2:])
-            raise NotImplementedError(
-                f"{name}={value} is not ported to ddpm_ood_tpu_torch"
-                + (f" ({why})" if why else ""))
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"more than one process (WORLD_SIZE={world}) is not ported: run one process")
+    ])
 
 
 def resolve_recon_groups(value) -> int:
@@ -141,14 +131,14 @@ class Reconstruct(BaseTrainer):
         log.info("LPIPS is not ported: perceptual_difference is written as 0.0; "
                  "score with ood_detection.py's default --plot_target=mse")
 
-    def _make_loader(self, ids, first_n, add_vflip=False, add_hflip=False) -> EvalLoader:
+    def _make_loader(self, ids, first_n, add_vflip=False, add_hflip=False) -> DataLoader:
         a = self.args
         transform = TransformChain(
             spatial_dimension=self.spatial_dimension, is_grayscale=self.is_grayscale,
             image_size=self.image_size, image_roi=self.image_roi,
             add_vflip=add_vflip, add_hflip=add_hflip,
         )
-        return EvalLoader(ids, a.batch_size, transform, first_n=int(first_n) if first_n else None,
+        return DataLoader(ids, a.batch_size, transform, first_n=int(first_n) if first_n else None,
                           drop_last=bool(getattr(a, "drop_last", 0)),
                           num_workers=int(getattr(a, "num_workers", 1) or 1))
 

@@ -1,9 +1,10 @@
-"""Find and load reference-schema ``.pth`` checkpoints.
+"""Write, find and load reference-schema ``.pth`` checkpoints.
 
-The reference (and the port) saves ``checkpoint.pth`` (the rolling best)
-and periodic ``checkpoint_{N}.pth`` files, each a dict {epoch,
-global_step, model_state_dict, optimizer_state_dict, best_loss} plus an
-optional ``ema_model_state_dict``. Discovery follows the JAX package's
+The reference (and the port's trainer) saves ``checkpoint.pth`` (the
+rolling best) and periodic ``checkpoint_{N}.pth`` files, each a dict {epoch
+(the next epoch to run), global_step (images seen), model_state_dict,
+optimizer_state_dict (torch Adam's own ``state_dict()``), best_loss} plus
+``ema_model_state_dict`` when the run keeps a weight EMA. Discovery follows the JAX package's
 ``utils/checkpoint.py:find_checkpoint``: an explicit epoch, else the rolling
 file, else the newest periodic one.
 
@@ -14,6 +15,7 @@ orbax, which the port does not use; convert them on a host with JAX
 
 from __future__ import annotations
 
+import os
 import re
 from pathlib import Path
 from typing import Optional
@@ -57,6 +59,21 @@ def missing_checkpoint_error(run_dir: str | Path) -> FileNotFoundError:
     return FileNotFoundError(msg)
 
 
+def write_checkpoint(path: str | Path, payload: dict) -> Path:
+    """torch.save to a temporary name, then an atomic rename: a reader (or a
+    resume after a crash) never sees a torn file."""
+    path = Path(path)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str | Path) -> dict:
+    """The payload on the CPU; tensors only, no pickled code."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def save_checkpoint(path: str | Path, model_state_dict: dict, epoch: int = 0,
                     ema_model_state_dict: Optional[dict] = None) -> None:
     """Write a reference-schema checkpoint of weights only (scoring needs no
@@ -71,4 +88,4 @@ def save_checkpoint(path: str | Path, model_state_dict: dict, epoch: int = 0,
     }
     if ema_model_state_dict is not None:
         payload["ema_model_state_dict"] = ema_model_state_dict
-    torch.save(payload, path)
+    write_checkpoint(path, payload)

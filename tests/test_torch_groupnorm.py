@@ -8,8 +8,14 @@ by chip_smoke.py.
 
 Tolerance: atol 2e-5 in fp32. Both sides keep fp32 statistics with the same
 E[x^2] - mean^2 formula; only the order of the sums differs.
+
+Gradients (x, gamma, beta) against ``jax.vjp`` of ``_xla_reference``, both
+of the plain version under autograd (the CPU path) and of the autograd
+Function the CUDA path runs, with the plain version standing in for the
+kernel's forward: atol 3e-5, the tolerance of tests/test_groupnorm.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,13 +23,16 @@ import torch
 
 from ddpm_ood_tpu.ops.groupnorm import _xla_reference
 from ddpm_ood_tpu.ops.groupnorm import groupnorm_act as jax_groupnorm_act
+from ddpm_ood_tpu_torch.ops import groupnorm as gn_mod
 from ddpm_ood_tpu_torch.ops.groupnorm import (
     _check_cuda_args,
+    _GroupNormAct,
     groupnorm_act,
     groupnorm_act_reference,
 )
 
 ATOL = 2e-5
+GRAD_ATOL = 3e-5
 
 
 def _inputs(shape, seed=0):
@@ -89,3 +98,24 @@ def test_kernel_argument_checks_raise(kind):
     """What the CUDA path refuses before it reaches the kernel."""
     with pytest.raises((TypeError, ValueError)):
         _check_cuda_args(*_bad(kind))
+
+
+@pytest.mark.parametrize("path", ["cpu", "cuda_function"])
+@pytest.mark.parametrize("shape,groups", [((2, 8, 8, 128), 32), ((2, 4, 4, 96), 8)])
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_gradients_match_jax_vjp(monkeypatch, path, shape, groups, act):
+    x, gamma, beta = _inputs(shape, seed=2)
+    g = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: _xla_reference(a, b, c, groups, 1e-6, act),
+                     jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    want = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta)]
+    if path == "cpu":
+        y = groupnorm_act(*ts, groups, 1e-6, act)
+    else:  # the Function of the CUDA path; its forward's kernel stood in for
+        monkeypatch.setattr(gn_mod, "_launch", groupnorm_act_reference)
+        y = _GroupNormAct.apply(*ts, groups, 1e-6, act)
+    y.backward(torch.from_numpy(g))
+    for name, t, w in zip(("x", "gamma", "beta"), ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=0,
+                                   err_msg=name)

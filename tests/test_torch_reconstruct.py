@@ -14,9 +14,9 @@ import pandas as pd
 import pytest
 import torch
 
-from ddpm_ood_tpu.data.csv_splits import write_split_csv
 from ddpm_ood_tpu.ood import run_ood_detection
 from ddpm_ood_tpu_torch import reconstruct as cli
+from ddpm_ood_tpu_torch.data.csv_splits import write_split_csv
 from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
 from ddpm_ood_tpu_torch.trainers.reconstruct import COLUMNS, _CsvSink
 from ddpm_ood_tpu_torch.utils.checkpoint import find_checkpoint, save_checkpoint
