@@ -6,12 +6,16 @@
 Phases, each fatal on failure:
   1. device   -- a CUDA card is required (there is no CPU fallback); prints the
                  torch version and the card's name and power limit.
-  2. build    -- compiles ddpm_ood_tpu_torch/csrc/*.cu with nvcc.
+  2. build    -- compiles ddpm_ood_tpu_torch/csrc/*.cu with nvcc (one process
+                 per source, all at once), prints ptxas' register, spill and
+                 shared-memory lines, and fails if a tensor-core kernel spills.
   3. kernels  -- every kernel (GroupNorm, flash forward, flash backward dK/dV
-                 and dQ) against its plain PyTorch version at the main paths'
-                 shapes, with the tolerance stated; each timed with CUDA events
-                 beside its plain version, one PyTorch library call computing
-                 the same function, and its bound.
+                 and dQ; bf16 forward and dK/dV on tensor cores, fp32 on CUDA
+                 cores) against its plain PyTorch version at the main paths'
+                 shapes and ragged ones, with the tolerance stated; each timed
+                 (device time, CUDA events, the host's launch overhead hidden
+                 behind a sleep kernel) beside its plain version, one PyTorch
+                 library call computing the same function, and its bound.
   4. forward  -- the full-width small UNet through the kernels on the card
                  against the same weights through the plain versions on the CPU.
   5. step     -- one fp32 training step of the same UNet (loss and every
@@ -20,13 +24,15 @@ Phases, each fatal on failure:
                  reference-schema checkpoint.pth, then runs the scoring CLI
                  (ddpm_ood_tpu_torch.reconstruct) in this process: small UNet,
                  100-step PLMS, skip factor 4, batch 32. Checks the result CSVs
-                 and that every UNet forward went through both forward kernels.
+                 and that every UNet forward went through both forward kernels,
+                 every flash forward on tensor cores (bf16 autocast).
   7. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
-                 schema, the launch counts of all four kernels, and that the
-                 scoring CLI loads the trained checkpoint.pth.
+                 schema, the launch counts of all four kernels (every flash
+                 forward and dK/dV on tensor cores), and that the scoring CLI
+                 loads the trained checkpoint.pth.
 
 Launch counts are set to 0 just before each of the two CLI runs and read just
 after. The line before the last is a JSON summary of the kernels; the last
@@ -38,6 +44,7 @@ from __future__ import annotations
 import csv
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -55,14 +62,23 @@ ROOT = Path(__file__).resolve().parent
 # at 1e-4 over a 256-long dot and a softmax, tests/test_attention.py). bf16:
 # both compute in fp32 from the same bf16 inputs and round once, so they
 # differ by at most one bf16 ulp of the output; the inputs keep |y| < 4, where
-# that ulp is 2^-6 = 0.0156 < 2e-2. Attention in bf16 also rounds the
-# probabilities to bf16 in the plain forward only.
+# that ulp is 2^-6 = 0.0156 < 2e-2. Attention in bf16: the tensor-core
+# kernels round the forward's unnormalised probabilities, and the backward's
+# P and dS, to bf16 before their products, as FlashAttention-2 does; the plain
+# forward rounds the normalised probabilities, the plain backward nothing.
+# Each rounding is 2^-9 relative and the sums over <= 1000 keys average it
+# out; tests/test_torch_attention_tc.py emulates the kernels' rounding on the
+# CPU and stays within 2e-2 of the fp32 JAX kernels.
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GN_SHAPES = [(1024, 128), (1024, 256), (1024, 384), (256, 128), (256, 256),
              (256, 384), (256, 512), (64, 256), (64, 512)]
-# (B*H, N, D): scoring's K*B = 64, training's batch of 128, and a ragged N
-ATTN_SHAPES = [(64, 64, 256), (128, 64, 256), (4, 1000, 64)]
+# (B*H, N, D): scoring's K*B = 64, training's batch of 128, and ragged ones: N
+# past a 64-key tile at D = 256, two key tiles at a D that pads to 64, three
+# at a D that pads to 128, and 16 key tiles at D = 64
+ATTN_SHAPES = [(64, 64, 256), (128, 64, 256), (8, 100, 256), (4, 72, 40), (2, 130, 96),
+               (4, 1000, 64)]
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")  # ptxas must show no spill
 ATTN_SUMMARY = (128, 64, 256, torch.bfloat16)  # the training path's shape
 
 
@@ -75,24 +91,6 @@ class PhaseError(RuntimeError):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_cuda(fn, iters: int = 20, reps: int = 7) -> float:
-    """Median milliseconds per call over `reps` runs of `iters` warm calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
 
 
 def phase_device() -> dict:
@@ -124,23 +122,18 @@ def phase_build() -> None:
     secs = _kernels.build(force=True)
     _kernels.library()
     log(f"build: nvcc {secs:.2f} s -> {_kernels.LIB_PATH.relative_to(ROOT)}")
+    function, spills = None, {}
     for line in _kernels.BUILD_LOG.read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-
-
-# card peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense): device memory
-# 3.35 TB/s; 989 TFLOP/s on bf16 tensor cores, 67 TFLOP/s in fp32
-MEM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
-
-def bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the peak for the inputs' type, whichever is larger."""
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if m := re.search(r"Function properties for (\S+)", line):
+            function = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and function and any(name in function for name in TC_KERNELS):
+            spills[function] = int(m.group(1)) + int(m.group(2))
+    log(f"build: tensor-core kernels' spill bytes (ptxas) {spills}")
+    if not spills or any(spills.values()):
+        raise PhaseError(f"tensor-core kernels must compile without spills: {spills}")
 
 
 def _check(name: str, err: float, tol: float, what: str) -> None:
@@ -151,6 +144,7 @@ def _check(name: str, err: float, tol: float, what: str) -> None:
 def phase_kernels(dev: torch.device) -> dict:
     import torch.nn.functional as F
 
+    from ddpm_ood_tpu_torch.bench_attention import attention_bounds, bound, time_cuda
     from ddpm_ood_tpu_torch.ops.attention import (
         einsum_attention, einsum_logsumexp, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_reference, flash_attention_fwd,
@@ -201,7 +195,7 @@ def phase_kernels(dev: torch.device) -> dict:
                            for _ in range(4))
             q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
             scale = 1.0 / math.sqrt(d)
-            elems, s = q.numel(), q.element_size()
+            bounds = attention_bounds(bh, n, d, dtype)
             what = f"BH={bh} N={n} D={d} {str(dtype)[6:]}"
 
             got, lse = flash_attention_fwd(q, k, v, scale)
@@ -215,7 +209,7 @@ def phase_kernels(dev: torch.device) -> dict:
                    "plain_ms": time_cuda(lambda: einsum_attention(q, k, v, scale)),
                    "library_ms": time_cuda(
                        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
-                   **bound(4 * elems * s + bh * n * 4, 4.0 * bh * n * n * d, dtype)}
+                   **bounds["flash_attention_fwd"]}
 
             # the backward kernels on the forward kernel's own O and lse
             delta = (do.float() * got.float()).sum(-1).reshape(bh, n).contiguous()
@@ -242,15 +236,14 @@ def phase_kernels(dev: torch.device) -> dict:
             out_lib = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
             lib_bwd = time_cuda(lambda: torch.autograd.grad(out_lib, (ql, kl, vl), do,
                                                             retain_graph=True))
-            io = 4 * elems * s + 2 * bh * n * 4  # q, k, v, dO read; lse, delta read
             dkv = {"ms": time_cuda(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                                    scale)),
                    "plain_ms": plain_bwd, "library_ms": lib_bwd,
-                   **bound(io + 2 * elems * s, 8.0 * bh * n * n * d, dtype)}
+                   **bounds["flash_attention_bwd_dkv"]}
             dqt = {"ms": time_cuda(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                                                   scale)),
                    "plain_ms": plain_bwd, "library_ms": lib_bwd,
-                   **bound(io + elems * s, 6.0 * bh * n * n * d, dtype)}
+                   **bounds["flash_attention_bwd_dq"]}
             for name, row, e in (("flash_attention_fwd", fwd, err),
                                  ("flash_attention_bwd_dkv", dkv, e_dkv),
                                  ("flash_attention_bwd_dq", dqt, e_dq)):
@@ -267,11 +260,12 @@ def phase_kernels(dev: torch.device) -> dict:
     return summary
 
 
+# the main path runs bf16: forward and dK/dV on the tensor-core kernels
 KERNELS = {
     "groupnorm_act": ("ddpm_ood_tpu_torch/csrc/groupnorm.cu", "ddpm_ood_tpu/ops/groupnorm.py:58"),
-    "flash_attention_fwd": ("ddpm_ood_tpu_torch/csrc/attention.cu",
+    "flash_attention_fwd": ("ddpm_ood_tpu_torch/csrc/attention_fwd_tc.cu",
                             "ddpm_ood_tpu/ops/attention.py:51"),
-    "flash_attention_bwd_dkv": ("ddpm_ood_tpu_torch/csrc/attention_bwd.cu",
+    "flash_attention_bwd_dkv": ("ddpm_ood_tpu_torch/csrc/attention_bwd_tc.cu",
                                 "ddpm_ood_tpu/ops/attention.py:138"),
     "flash_attention_bwd_dq": ("ddpm_ood_tpu_torch/csrc/attention_bwd.cu",
                                "ddpm_ood_tpu/ops/attention.py:181"),
@@ -410,7 +404,11 @@ def phase_main(dev: torch.device) -> dict:
         if launches["flash_attention_fwd"] != ATTN_PER_FORWARD * evals:
             raise PhaseError(f"attention launches {launches['flash_attention_fwd']} != "
                              f"{ATTN_PER_FORWARD} x {evals}")
-        if launches["flash_attention_bwd_dkv"] or launches["flash_attention_bwd_dq"]:
+        if launches["flash_attention_fwd_tc"] != launches["flash_attention_fwd"]:
+            raise PhaseError(f"bf16 scoring ran {launches['flash_attention_fwd_tc']} of "
+                             f"{launches['flash_attention_fwd']} flash forwards on tensor cores")
+        if (launches["flash_attention_bwd_dkv"] or launches["flash_attention_bwd_dq"]
+                or launches["flash_attention_bwd_dkv_tc"]):
             raise PhaseError(f"scoring launched a backward kernel: {launches}")
         for name in ("val", "in", "checkerboard"):
             _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
@@ -449,13 +447,21 @@ def _launch_counters():
             "flash_attention_bwd_dq": flash_attention_bwd_dq}
 
 
+# wrappers that also count their bf16 tensor-core launches, read as "<name>_tc"
+TC_COUNTED = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+
+
 def reset_launches() -> None:
-    for fn in _launch_counters().values():
+    for name, fn in _launch_counters().items():
         fn.launches = 0
+        if name in TC_COUNTED:
+            fn.tc_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _launch_counters().items()}
+    fns = _launch_counters()
+    return {**{name: fn.launches for name, fn in fns.items()},
+            **{f"{name}_tc": fns[name].tc_launches for name in TC_COUNTED}}
 
 
 def phase_train_step(dev: torch.device) -> None:
@@ -480,7 +486,9 @@ def phase_train_step(dev: torch.device) -> None:
         counts = read_launches()
     want = {"groupnorm_act": GN_PER_FORWARD, "flash_attention_fwd": ATTN_PER_FORWARD,
             "flash_attention_bwd_dkv": ATTN_PER_FORWARD,
-            "flash_attention_bwd_dq": ATTN_PER_FORWARD}
+            "flash_attention_bwd_dq": ATTN_PER_FORWARD,
+            # fp32: no launch on the bf16 tensor-core kernels
+            "flash_attention_fwd_tc": 0, "flash_attention_bwd_dkv_tc": 0}
     if counts != want:
         raise PhaseError(f"one training step launched {counts}, expected {want}")
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
@@ -559,6 +567,8 @@ def phase_train(dev: torch.device) -> dict:
                 "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
                 "flash_attention_bwd_dkv": ATTN_PER_FORWARD * trainer.step.backwards,
                 "flash_attention_bwd_dq": ATTN_PER_FORWARD * trainer.step.backwards}
+        # bf16 autocast: every flash forward and dK/dV on tensor cores
+        want.update({f"{name}_tc": want[name] for name in TC_COUNTED})
         log(f"train: {trainer.step.backwards} training steps, {trainer.step.forwards} train/eval "
             f"UNet forwards + {trainer.sample_forwards} sampler forwards; launches {launches}")
         if trainer.step.backwards != steps or trainer.sample_forwards != 1000:
@@ -622,9 +632,11 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {"score": score.get(name, 0), "train": train[name]}
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                        "launches": sum(by_path.values()), "launches_by_path": by_path,
-                        **summary[name]})
+        row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+               "launches": sum(by_path.values()), "launches_by_path": by_path}
+        if name in TC_COUNTED:
+            row["tensor_core_launches"] = score[f"{name}_tc"] + train[f"{name}_tc"]
+        kernels.append({**row, **summary[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))
     return 0

@@ -18,8 +18,11 @@
 // this CUDA-core version becomes compute-bound; tensor cores (wgmma) are
 // later work.
 //
+// This CUDA-core kernel serves fp32 inputs only; bf16 runs on
+// tensor cores (csrc/attention_fwd_tc.cu).
+//
 // Design: tiles of BQ = 32 query rows and BK = 32 keys, held in shared memory
-// as fp32 (inputs are converted on load, so f32 and bf16 share one code path).
+// as fp32 (inputs are converted on load).
 // At D = 256 that is 32 KB per tile and ~101 KB per block in all, above the
 // 48 KB default, so the launcher raises the block's dynamic shared-memory
 // limit; two blocks fit on an SM. K rows are padded by one float so the 32
@@ -188,7 +191,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 }  // namespace
 }  // namespace ddpm
 
-// q, k, v, o: (BH, N, D) contiguous, D <= 256; lse: (BH, N) fp32.
+// q, k, v, o: (BH, N, D) contiguous fp32, D <= 256; lse: (BH, N) fp32.
 extern "C" int ddpm_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int BH, int N, int D, float scale, int dtype,
                                    int device, void* stream) {
@@ -199,9 +202,7 @@ extern "C" int ddpm_flash_attn_fwd(const void* q, const void* k, const void* v, 
   switch (dtype) {
     case ddpm::kFloat32:
       return ddpm::launch<float>(q, k, v, o, lse, BH, N, D, scale, s);
-    case ddpm::kBFloat16:
-      return ddpm::launch<__nv_bfloat16>(q, k, v, o, lse, BH, N, D, scale, s);
-    default:
+    default:  // bf16 runs on tensor cores: ddpm_flash_attn_fwd_tc
       return cudaErrorInvalidValue;
   }
 }

@@ -20,6 +20,9 @@
 // sequences the flops grow as N^2 and this CUDA-core version becomes
 // compute-bound; tensor cores (wgmma) are later work.
 //
+// The dK/dV kernel here serves fp32 inputs only; bf16 dK/dV runs on
+// tensor cores (csrc/attention_bwd_tc.cu). dQ serves both types.
+//
 // Design: tiles of BQ = 32 queries and BK = 32 keys held in shared memory as
 // fp32 (inputs are converted on load, so f32 and bf16 share one code path). At
 // D = 256 a block holds Q, dO (32 x 256 each), K, V (32 x 257 each, rows padded
@@ -302,7 +305,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }  // namespace
 }  // namespace ddpm
 
-// q, k, v, dout, dk, dv: (BH, N, D) contiguous, D <= 256; lse, delta: (BH, N) fp32.
+// q, k, v, dout, dk, dv: (BH, N, D) contiguous fp32, D <= 256; lse, delta: (BH, N)
+// fp32.
 extern "C" int ddpm_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse, const float* delta,
                                        void* dk, void* dv, int BH, int N, int D, float scale,
@@ -314,10 +318,7 @@ extern "C" int ddpm_flash_attn_bwd_dkv(const void* q, const void* k, const void*
   switch (dtype) {
     case ddpm::kFloat32:
       return ddpm::launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale, s);
-    case ddpm::kBFloat16:
-      return ddpm::launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale,
-                                             s);
-    default:
+    default:  // bf16 runs on tensor cores: ddpm_flash_attn_bwd_dkv_tc
       return cudaErrorInvalidValue;
   }
 }

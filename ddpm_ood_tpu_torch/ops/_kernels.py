@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources under ``ddpm_ood_tpu_torch/csrc`` are compiled by ``nvcc`` into
-one shared library with a plain C interface, ``_build/libddpm_ood_kernels.so``,
-and bound with ctypes. The library is built at first use from the checkout's
-own sources, and rebuilt when a source is newer than it. ``nvcc`` takes a
-few seconds for these files because none of them includes PyTorch's headers.
+Each source under ``ddpm_ood_tpu_torch/csrc`` is compiled by its own
+``nvcc``, all started together, and the objects are linked into one shared
+library with a plain C interface, ``_build/libddpm_ood_kernels.so``, bound
+with ctypes (argument types in ``SIGNATURES``). The library is built at first
+use from the checkout's own sources, and rebuilt when a source is newer than
+it. None of the sources includes PyTorch's headers, which keeps ``nvcc`` fast.
 
 This module imports no CUDA code and runs no compiler when it is imported:
 the CPU tests import every module of the package.
@@ -30,11 +31,28 @@ LIB_PATH = BUILD_DIR / "libddpm_ood_kernels.so"
 BUILD_LOG = BUILD_DIR / "build.log"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every C entry point's argument types, in order; all return a cudaError_t
+SIGNATURES = {
+    # x, gamma, beta, y, B, HW, C, G, eps, act, dtype, device, stream
+    "ddpm_groupnorm_act": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # q, k, v, o, lse, BH, N, D, scale, dtype (fp32 only), device, stream
+    "ddpm_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, lse, BH, N, D, scale, device, stream (bf16, tensor cores)
+    "ddpm_flash_attn_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, BH, N, D, scale, dtype (fp32 only), device, stream
+    "ddpm_flash_attn_bwd_dkv": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, BH, N, D, scale, device, stream (bf16, tensor cores)
+    "ddpm_flash_attn_bwd_dkv_tc": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dq, BH, N, D, scale, dtype, device, stream
+    "ddpm_flash_attn_bwd_dq": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
+}
 
 
 class KernelBuildError(RuntimeError):
@@ -70,8 +88,10 @@ def _stale() -> bool:
 
 
 def build(force: bool = False) -> float:
-    """Compile the kernel library if it is missing or stale. Returns the
-    seconds nvcc took (0.0 when the library was current)."""
+    """Compile the kernel library if it is missing or stale: one ``nvcc`` per
+    source, all at once, then one link. Returns the seconds that took (0.0
+    when the library was current). ``BUILD_LOG`` keeps every command and
+    its output, ptxas' register and spill lines included."""
     if not force and not _stale():
         return 0.0
     nvcc = find_nvcc()
@@ -81,18 +101,34 @@ def build(force: bool = False) -> float:
             "/usr/local/cuda/bin): the CUDA kernels cannot be built here"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for obj, cmd, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{Path(cmd[-1]).name} (exit {proc.returncode}):\n{err}")
+    tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr}")
     seconds = time.perf_counter() - t0
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    BUILD_LOG.write_text("\n".join(log))
+    for obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
-        )
+        raise KernelBuildError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader never sees a torn file
     return seconds
 
@@ -102,16 +138,11 @@ def library() -> ctypes.CDLL:
     """The bound kernel library, built on first use."""
     build()
     lib = ctypes.CDLL(str(LIB_PATH))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ddpm_groupnorm_act.argtypes = [p, p, p, p, i, i, i, i, f, i, i, i, p]
-    lib.ddpm_groupnorm_act.restype = i
-    lib.ddpm_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, i, p]
-    lib.ddpm_flash_attn_fwd.restype = i
-    lib.ddpm_flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
-    lib.ddpm_flash_attn_bwd_dkv.restype = i
-    lib.ddpm_flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, i, p]
-    lib.ddpm_flash_attn_bwd_dq.restype = i
-    lib.ddpm_cuda_error_string.argtypes = [i]
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.ddpm_cuda_error_string.argtypes = [_I]
     lib.ddpm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -124,3 +155,18 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cuda_target(t: torch.Tensor, what: str) -> tuple:
+    """(device index, current stream) for a launch on t's card; raises for a
+    tensor anywhere else."""
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {t.device}")
+    return t.device.index, stream_of(t)
+
+
+def call(name: str, *args) -> None:
+    """Run the C entry point ``name`` with ``args`` (as ``SIGNATURES``
+    declares them); raises KernelLaunchError when it returns a CUDA error."""
+    lib = library()
+    check_rc(lib, getattr(lib, name)(*args), name)

@@ -2,11 +2,20 @@
 
 Port of ``ddpm_ood_tpu/ops/attention.py``. On CUDA tensors ``attention`` runs
 a ``torch.autograd.Function`` over three hand-written kernels: the flash
-forward (``csrc/attention.cu``, which saves the per-row logsumexp) and the
-two flash backward kernels (``csrc/attention_bwd.cu``: dK/dV, then dQ). A
-kernel that does not build or launch raises; nothing falls back. On CPU
-tensors it runs ``einsum_attention``, the plain PyTorch version, under
-autograd. ``flash_attention_bwd_reference`` is the plain version of the
+forward (which saves the per-row logsumexp) and the two flash backward
+kernels, dK/dV then dQ. The wrappers choose the kernel by dtype:
+
+- bf16 forward and dK/dV run on tensor cores (``csrc/attention_fwd_tc.cu``,
+  ``csrc/attention_bwd_tc.cu``: mma.sync, counted in ``.tc_launches`` as well
+  as ``.launches``); they take a head dim that is a multiple of 8 and tensors
+  on 16-byte boundaries, and any other bf16 shape raises ValueError;
+- fp32 forward and dK/dV run the CUDA-core kernels (``csrc/attention.cu``,
+  ``csrc/attention_bwd.cu``);
+- dQ runs the CUDA-core kernel of ``csrc/attention_bwd.cu`` for both.
+
+A kernel that does not build or launch raises; nothing falls back. On CPU
+tensors ``attention`` runs ``einsum_attention``, the plain PyTorch version,
+under autograd. ``flash_attention_bwd_reference`` is the plain version of the
 backward kernels' math, for the tests and the card's checks.
 """
 
@@ -19,6 +28,7 @@ import torch
 from . import _kernels
 
 MAX_HEAD_DIM = 256  # the kernel's shared-memory tiles are sized for D <= 256
+TC_HEAD_DIM_MULTIPLE = 8  # the bf16 kernels copy rows in 16-byte chunks
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,31 +63,44 @@ def _check_cuda_args(q, k, v):
         raise ValueError(f"flash_attention: head dim {q.shape[-1]} > {MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_tc_layout("flash_attention", q, k, v)
+
+
+def _check_tc_layout(what, *ts):
+    """What the bf16 tensor-core kernels need beyond the common checks."""
+    d = ts[0].shape[-1]
+    if d % TC_HEAD_DIM_MULTIPLE:
+        raise ValueError(f"{what}: the bf16 kernels take a head dim that is a multiple of "
+                         f"{TC_HEAD_DIM_MULTIPLE}, got {d}")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: bf16 tensors must start on a 16-byte boundary")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA flash kernel: returns O (B, H, N, D) in q's dtype and
     the fp32 row logsumexp (B*H, N). Counts launches in
-    ``flash_attention_fwd.launches``."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_fwd: no kernel for device {q.device}")
+    ``flash_attention_fwd.launches``, the bf16 tensor-core ones also in
+    ``flash_attention_fwd.tc_launches``."""
+    target = _kernels.cuda_target(q, "flash_attention_fwd")
     _check_cuda_args(q, k, v)
     b, h, n, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    lib = _kernels.library()
-    rc = lib.ddpm_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b * h, n, d, float(sm_scale), _kernels.DTYPE_CODES[q.dtype],
-        q.device.index, _kernels.stream_of(q),
-    )
-    _kernels.check_rc(lib, rc, "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b * h, n, d, float(sm_scale))
+    if q.dtype == torch.bfloat16:
+        _kernels.call("ddpm_flash_attn_fwd_tc", *args, *target)
+        flash_attention_fwd.tc_launches += 1
+    else:
+        _kernels.call("ddpm_flash_attn_fwd", *args, _kernels.DTYPE_CODES[q.dtype], *target)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, sm_scale: float):
@@ -104,6 +127,8 @@ def _check_bwd_args(q, k, v, do, lse, delta):
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError(f"flash_attention_bwd: dO {do.dtype} {tuple(do.shape)} must be a "
                          f"contiguous {q.dtype} {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        _check_tc_layout("flash_attention_bwd", do)
     rows = (q.shape[0] * q.shape[1], q.shape[2])
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or tuple(t.shape) != rows or t.device != q.device
@@ -112,26 +137,26 @@ def _check_bwd_args(q, k, v, do, lse, delta):
                              f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _bwd_launch(fn_name: str, outs, q, k, v, do, lse, delta, sm_scale):
-    if q.device.type != "cuda":
-        raise RuntimeError(f"{fn_name}: no kernel for device {q.device}")
-    _check_bwd_args(q, k, v, do, lse, delta)
+def _bwd_args(q, k, v, do, lse, delta, outs, sm_scale):
     b, h, n, d = q.shape
-    lib = _kernels.library()
-    rc = getattr(lib, fn_name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(t.data_ptr() for t in outs), b * h, n, d, float(sm_scale),
-        _kernels.DTYPE_CODES[q.dtype], q.device.index, _kernels.stream_of(q),
-    )
-    _kernels.check_rc(lib, rc, fn_name)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), b * h, n, d, float(sm_scale))
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     """Launch the dK/dV kernel: (dk, dv) in q's dtype. lse and delta are the
     (B*H, N) fp32 row logsumexp and rowsum(dO * O). Counts launches in
-    ``flash_attention_bwd_dkv.launches``."""
+    ``flash_attention_bwd_dkv.launches``, the bf16 tensor-core ones also in
+    ``flash_attention_bwd_dkv.tc_launches``."""
+    target = _kernels.cuda_target(q, "flash_attention_bwd_dkv")
+    _check_bwd_args(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("ddpm_flash_attn_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, sm_scale)
+    args = _bwd_args(q, k, v, do, lse, delta, (dk, dv), sm_scale)
+    if q.dtype == torch.bfloat16:
+        _kernels.call("ddpm_flash_attn_bwd_dkv_tc", *args, *target)
+        flash_attention_bwd_dkv.tc_launches += 1
+    else:
+        _kernels.call("ddpm_flash_attn_bwd_dkv", *args, _kernels.DTYPE_CODES[q.dtype], *target)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -139,13 +164,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
     """Launch the dQ kernel: dq in q's dtype. Counts launches in
     ``flash_attention_bwd_dq.launches``."""
+    target = _kernels.cuda_target(q, "flash_attention_bwd_dq")
+    _check_bwd_args(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _bwd_launch("ddpm_flash_attn_bwd_dq", (dq,), q, k, v, do, lse, delta, sm_scale)
+    _kernels.call("ddpm_flash_attn_bwd_dq", *_bwd_args(q, k, v, do, lse, delta, (dq,), sm_scale),
+                  _kernels.DTYPE_CODES[q.dtype], *target)
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tc_launches = 0
 flash_attention_bwd_dq.launches = 0
 
 

@@ -68,13 +68,11 @@ def _launch(x, gamma, beta, num_groups, eps, act):
     b, c = x.shape[0], x.shape[-1]
     n = math.prod(x.shape[1:-1])
     out = torch.empty_like(x)
-    lib = _kernels.library()
-    rc = lib.ddpm_groupnorm_act(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+    _kernels.call(
+        "ddpm_groupnorm_act", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
         b, n, c, num_groups, float(eps), int(act == "silu"),
-        _kernels.DTYPE_CODES[x.dtype], x.device.index, _kernels.stream_of(x),
+        _kernels.DTYPE_CODES[x.dtype], *_kernels.cuda_target(x, "groupnorm_act"),
     )
-    _kernels.check_rc(lib, rc, "groupnorm_act")
     groupnorm_act.launches += 1
     return out
 

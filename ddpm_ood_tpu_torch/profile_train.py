@@ -42,7 +42,7 @@ LAYERS = [
     ("linear_bwd", "AddmmBackward"),
     ("linear_bwd", "MmBackward"),
     ("groupnorm_fwd (kernel)", "groupnorm_act_kernel"),
-    ("attention_fwd (kernel)", "flash_fwd_kernel"),
+    ("attention_fwd (kernel)", "flash_fwd_tc_kernel"),
     ("conv_fwd", "aten::convolution"),
     ("linear_fwd", "aten::addmm"),
     ("linear_fwd", "aten::linear"),
@@ -50,7 +50,8 @@ LAYERS = [
 
 
 MODEL_TYPE, BATCH, IMAGE_SIZE, STEPS = "small", 128, 32, 20  # the training path's cell
-OUR_KERNELS = ("groupnorm_act_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
+# bf16 autocast: the flash forward and dK/dV run on their tensor-core kernels
+OUR_KERNELS = ("groupnorm_act_kernel", "flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
                "flash_bwd_dq_kernel")
 
 
