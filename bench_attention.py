@@ -1,21 +1,22 @@
-"""Time the flash-attention kernels in bf16 beside SDPA and their bounds, on one CUDA card.
+#!/usr/bin/env python3
+"""Time the port's flash-attention kernels in bf16 beside SDPA and their bounds, on one CUDA card.
 
-    python -m ddpm_ood_tpu_torch.bench_attention [--shapes=128x64x256,64x64x256] [--label=NAME]
+    python3 bench_attention.py [--label=NAME]    # from the root of a checkout
 
-For each (B*H, N, D) it times ``flash_attention_fwd``, ``flash_attention_bwd_dkv``
-and ``flash_attention_bwd_dq`` on seeded inputs of std 0.5 (device time: the
-median of 7 runs of 20 warm launches, CUDA events, the host's launch overhead
-hidden behind a sleep kernel; see ``time_cuda``), one PyTorch call for the same work
+At each (B*H, N, D) of ``SHAPES`` it times ``flash_attention_fwd``,
+``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq`` on seeded inputs of
+std 0.5 (device time, ``time_cuda``), one PyTorch call for the same work
 (``scaled_dot_product_attention`` forward, and its backward for the two
-backward kernels together), and each kernel's bound: the larger of the bytes
-it must move over 3.35 TB/s and its operations over 989 TFLOP/s (NVIDIA's H100
-SXM data sheet, dense bf16). It prints the card's name and power limit, one
-JSON object per shape, and the kernels' launch counts.
+backward kernels together), and each kernel's bound (``attention_bounds``). It
+prints the card's name and power limit, one JSON object per shape, and the
+kernels' launch counts.
 
-It uses only what every version of the port since the backward kernels has,
-so a copy of this file inside an older checkout's package times that
-checkout's kernels: put two versions in one call to compare them on one card.
-The card is required.
+It also holds the yardstick that ``chip_smoke.py`` times every kernel with:
+``time_cuda``, ``bound`` and the card's peak rates. It imports the port from
+the directory it is run in and uses only what every version of the port since
+the backward kernels has, so a copy of this file at the root of an older
+checkout times that checkout's kernels: put two checkouts in one call to
+compare them on one card. The card is required.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ import time
 
 import torch
 
-MEM_BYTES_PER_S = 3.35e12
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 SLEEP_CLOCK_HZ = 2.0e9  # at or above the H100's SM clock, so a sleep lasts at least as asked
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor cores / CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor cores / CUDA cores
+# (B*H, N, D): training (batch 128), scoring (64 images), and two ragged ones
+SHAPES = [(128, 64, 256), (64, 64, 256), (8, 100, 256), (4, 1000, 64)]
 
 
 def time_cuda(fn, iters: int = 20, reps: int = 7) -> float:
@@ -83,7 +86,7 @@ def attention_bounds(bh: int, n: int, d: int, dtype: torch.dtype) -> dict:
 def bench_shape(bh: int, n: int, d: int, dtype=torch.bfloat16, seed: int = 0) -> dict:
     import torch.nn.functional as F
 
-    from .ops.attention import (
+    from ddpm_ood_tpu_torch.ops.attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
     )
 
@@ -108,28 +111,26 @@ def bench_shape(bh: int, n: int, d: int, dtype=torch.bfloat16, seed: int = 0) ->
     sdpa_bwd = time_cuda(lambda: torch.autograd.grad(out_lib, (ql, kl, vl), do, retain_graph=True))
     bounds = attention_bounds(bh, n, d, dtype)
     return {"shape": [bh, n, d], "dtype": str(dtype).removeprefix("torch."),
-            "kernels": {name: {"ms": t, "library_ms": sdpa_fwd if name.endswith("fwd") else sdpa_bwd,
-                               **bounds[name]} for name, t in ms.items()}}
+            "kernels": {name: {"ms": t, **bounds[name],
+                               "library_ms": sdpa_fwd if name.endswith("fwd") else sdpa_bwd}
+                        for name, t in ms.items()}}
 
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shapes", default="128x64x256,64x64x256,8x100x256,4x1000x64",
-                    help="comma-separated BHxNxD")
     ap.add_argument("--label", default="", help="a name printed with every result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_attention needs a CUDA card")
-    from .ops import _kernels
-    from .ops.attention import flash_attention_bwd_dkv, flash_attention_fwd
+    from ddpm_ood_tpu_torch.ops import _kernels
+    from ddpm_ood_tpu_torch.ops.attention import flash_attention_bwd_dkv, flash_attention_fwd
 
     _kernels.library()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card (nvidia-smi name, power.limit): {smi}", flush=True)
     results = []
-    for spec in args.shapes.split(","):
-        bh, n, d = (int(x) for x in spec.split("x"))
+    for bh, n, d in SHAPES:
         row = {"label": args.label, "card": smi, **bench_shape(bh, n, d)}
         print(json.dumps(row), flush=True)
         results.append(row)

@@ -57,20 +57,30 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# max-abs-error tolerances against the plain versions, by dtype. f32: the two
+# Tolerances against the plain versions, by dtype. f32, max abs error: the two
 # sum in different orders (groupnorm at 2e-5, attention forward and backward
-# at 1e-4 over a 256-long dot and a softmax, tests/test_attention.py). bf16:
-# both compute in fp32 from the same bf16 inputs and round once, so they
-# differ by at most one bf16 ulp of the output; the inputs keep |y| < 4, where
-# that ulp is 2^-6 = 0.0156 < 2e-2. Attention in bf16: the tensor-core
-# kernels round the forward's unnormalised probabilities, and the backward's
-# P and dS, to bf16 before their products, as FlashAttention-2 does; the plain
-# forward rounds the normalised probabilities, the plain backward nothing.
-# Each rounding is 2^-9 relative and the sums over <= 1000 keys average it
-# out; tests/test_torch_attention_tc.py emulates the kernels' rounding on the
-# CPU and stays within 2e-2 of the fp32 JAX kernels.
+# at 1e-4 over a 256-long dot and a softmax, tests/test_attention.py).
+# GroupNorm in bf16, max abs error: both compute in fp32 from the same bf16
+# inputs and round once, so they differ by at most one bf16 ulp of the output;
+# the inputs keep |y| < 4, where that ulp is 2^-6 = 0.0156 < 2e-2.
+# Attention in bf16: its outputs are far below 1 (a typical |dK| is ~0.004 at
+# N = 1000), so each output tensor is held on its own, relative to its plain
+# version's largest value: max|kernel - plain| / max|plain| <= 1e-2. Both round
+# an fp32 result to bf16 once, which differs by at most one ulp, 2^-7 = 7.8e-3
+# of the tensor's largest value; the rest is the fp32 difference of the
+# tensor-core kernels rounding the forward's unnormalised probabilities and
+# the backward's P and dS to bf16 before their products, as FlashAttention-2
+# does (the plain forward rounds the normalised probabilities, the plain
+# backward nothing): 2^-9 relative per term, averaged out over the keys or
+# queries. A dK of 0, or one 2% off, fails. Readings on an NVIDIA H100 80GB
+# HBM3 at 700 W over ATTN_SHAPES (PERF.md, PR 4): dV 6.58e-3, dK 6.29e-3,
+# O 6.21e-3, dQ 3.7e-6 at most; on the CPU, tests/test_torch_attention_tc.py
+# emulates the kernels' rounding within 4.11e-3 of the fp32 JAX kernels by the
+# same measure. The fp32 row logsumexp is held to LSE_TOL, absolute, in both
+# dtypes (read at most 1.4e-6).
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+LSE_TOL = 1e-4
 GN_SHAPES = [(1024, 128), (1024, 256), (1024, 384), (256, 128), (256, 256),
              (256, 384), (256, 512), (64, 256), (64, 512)]
 # (B*H, N, D): scoring's K*B = 64, training's batch of 128, and ragged ones: N
@@ -141,10 +151,17 @@ def _check(name: str, err: float, tol: float, what: str) -> None:
         raise PhaseError(f"{name} disagrees with its plain version at {what}: {err} > {tol}")
 
 
+def _attn_errs(got, ref) -> tuple:
+    """(max abs error, and the same over the plain version's largest |value|)
+    of one attention output tensor against its plain version."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / ref.float().abs().max().item()
+
+
 def phase_kernels(dev: torch.device) -> dict:
     import torch.nn.functional as F
 
-    from ddpm_ood_tpu_torch.bench_attention import attention_bounds, bound, time_cuda
+    from bench_attention import attention_bounds, bound, time_cuda
     from ddpm_ood_tpu_torch.ops.attention import (
         einsum_attention, einsum_logsumexp, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_reference, flash_attention_fwd,
@@ -186,11 +203,12 @@ def phase_kernels(dev: torch.device) -> dict:
                                 8 * x.numel(), dtype)}
     summary["groupnorm_act"]["max_abs_err"] = worst
 
-    worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dkv": 0.0,
-             "flash_attention_bwd_dq": 0.0}
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    worst = {name: 0.0 for name in names}  # max abs error, both dtypes
+    worst_rel = {name: 0.0 for name in names}  # bf16, relative to the largest |plain|
     for dtype in (torch.float32, torch.bfloat16):
         for bh, n, d in ATTN_SHAPES:
-            # std 0.5 keeps every gradient under 4, where one bf16 ulp is 2^-6
+            # std 0.5: every output well under 1 (bf16 is held relative, see ATTN_TOL)
             q, k, v, do = (0.5 * torch.randn((bh, 1, n, d), generator=gen, device=dev)
                            for _ in range(4))
             q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -202,9 +220,10 @@ def phase_kernels(dev: torch.device) -> dict:
             ref = einsum_attention(q, k, v, scale)
             ref_lse = einsum_logsumexp(q, k, scale)
             torch.cuda.synchronize()
-            err = max((got.float() - ref.float()).abs().max().item(),
-                      (lse - ref_lse).abs().max().item())
-            _check("flash_attention_fwd", err, ATTN_TOL[dtype], what)
+            e_lse = (lse - ref_lse).abs().max().item()
+            _check("flash_attention_fwd lse", e_lse, LSE_TOL, what)
+            # per output tensor: {name: (max abs error, relative to the largest |plain|)}
+            errs = {"flash_attention_fwd": {"O": _attn_errs(got, ref)}}
             fwd = {"ms": time_cuda(lambda: flash_attention_fwd(q, k, v, scale)),
                    "plain_ms": time_cuda(lambda: einsum_attention(q, k, v, scale)),
                    "library_ms": time_cuda(
@@ -217,12 +236,13 @@ def phase_kernels(dev: torch.device) -> dict:
             dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
             rdq, rdk, rdv = flash_attention_bwd_reference(q, k, v, got, lse, do, scale)
             torch.cuda.synchronize()
-            e_dkv = max((dk.float() - rdk.float()).abs().max().item(),
-                        (dv.float() - rdv.float()).abs().max().item())
-            e_dq = (dq.float() - rdq.float()).abs().max().item()
-            mag = max(t.float().abs().max().item() for t in (rdq, rdk, rdv))
-            _check("flash_attention_bwd_dkv", e_dkv, ATTN_TOL[dtype], what)
-            _check("flash_attention_bwd_dq", e_dq, ATTN_TOL[dtype], what)
+            errs["flash_attention_bwd_dkv"] = {"dK": _attn_errs(dk, rdk),
+                                               "dV": _attn_errs(dv, rdv)}
+            errs["flash_attention_bwd_dq"] = {"dQ": _attn_errs(dq, rdq)}
+            for name, per_tensor in errs.items():
+                for tensor, (e_abs, e_rel) in per_tensor.items():
+                    _check(f"{name} {tensor}", e_abs if dtype == torch.float32 else e_rel,
+                           ATTN_TOL[dtype], what)
             if dtype == torch.float32:  # a second, independent yardstick: autograd
                 qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
                 auto = torch.autograd.grad(einsum_attention(qa, ka, va, scale), (qa, ka, va), do)
@@ -244,19 +264,26 @@ def phase_kernels(dev: torch.device) -> dict:
                                                                   scale)),
                    "plain_ms": plain_bwd, "library_ms": lib_bwd,
                    **bounds["flash_attention_bwd_dq"]}
-            for name, row, e in (("flash_attention_fwd", fwd, err),
-                                 ("flash_attention_bwd_dkv", dkv, e_dkv),
-                                 ("flash_attention_bwd_dq", dqt, e_dq)):
-                log(f"{name} {what} max_abs_err={e:.3e} tol={ATTN_TOL[dtype]:.0e} "
+            for name, row in zip(names, (fwd, dkv, dqt)):
+                held = "abs" if dtype == torch.float32 else "rel"
+                shown = " ".join(f"{tensor}: abs={a:.3e} rel={r:.3e}"
+                                 for tensor, (a, r) in errs[name].items())
+                if name == "flash_attention_fwd":
+                    shown += f" lse: abs={e_lse:.3e} (tol {LSE_TOL:.0e})"
+                log(f"{name} {what} {shown} tol({held})={ATTN_TOL[dtype]:.0e} "
                     f"kernel={row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
                     f"library={row['library_ms']:.4f} ms bound={row['bound_ms']:.4f} ms "
                     f"({row['bound_by']}) ok")
-                worst[name] = max(worst[name], e)
+                worst[name] = max(worst[name], *(a for a, _ in errs[name].values()))
+                if name == "flash_attention_fwd":
+                    worst[name] = max(worst[name], e_lse)
+                if dtype == torch.bfloat16:
+                    worst_rel[name] = max(worst_rel[name], *(r for _, r in errs[name].values()))
                 if (bh, n, d, dtype) == ATTN_SUMMARY:
                     summary[name] = row
-            log(f"  max |grad| of the plain version {mag:.3f}")
-    for name, e in worst.items():
-        summary[name]["max_abs_err"] = e
+    for name in names:
+        summary[name]["max_abs_err"] = worst[name]
+        summary[name]["max_rel_err_bf16"] = worst_rel[name]
     return summary
 
 

@@ -21,8 +21,7 @@
 // This CUDA-core kernel serves fp32 inputs only; bf16 runs on
 // tensor cores (csrc/attention_fwd_tc.cu).
 //
-// Design: tiles of BQ = 32 query rows and BK = 32 keys, held in shared memory
-// as fp32 (inputs are converted on load).
+// Design: tiles of BQ = 32 query rows and BK = 32 keys, held in shared memory.
 // At D = 256 that is 32 KB per tile and ~101 KB per block in all, above the
 // 48 KB default, so the launcher raises the block's dynamic shared-memory
 // limit; two blocks fit on an SM. K rows are padded by one float so the 32
@@ -53,11 +52,10 @@ __host__ __device__ constexpr size_t smem_floats(int d) {
          + 3 * kBQ;                            // alpha, l, m per row
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                     int N, int D, float scale, int q_tiles) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int N, int D, float scale, int q_tiles) {
   extern __shared__ float smem[];
   const int ldk = D + 1;
   const int lds = kBK + 1;
@@ -77,7 +75,7 @@ __global__ void __launch_bounds__(kAttnThreads)
   for (int e = tid; e < kBQ * D; e += kAttnThreads) {
     const int i = e / D;
     const int row = q0 + i;
-    sQ[e] = row < N ? to_f32(q[head + static_cast<size_t>(row) * D + (e - i * D)]) : 0.f;
+    sQ[e] = row < N ? q[head + static_cast<size_t>(row) * D + (e - i * D)] : 0.f;
   }
   if (tid < kBQ) {
     sM[tid] = -1e30f;  // finite, so exp(m_prev - m_new) never sees inf - inf
@@ -101,8 +99,8 @@ __global__ void __launch_bounds__(kAttnThreads)
       float kv = 0.f, vv = 0.f;
       if (row < N) {
         const size_t idx = head + static_cast<size_t>(row) * D + d;
-        kv = to_f32(k[idx]);
-        vv = to_f32(v[idx]);
+        kv = k[idx];
+        vv = v[idx];
       }
       sK[j * ldk + d] = kv;
       sV[e] = vv;
@@ -166,25 +164,23 @@ __global__ void __launch_bounds__(kAttnThreads)
     if (e < kBQ * D) {
       const int i = e / D;
       const int row = q0 + i;
-      if (row < N) o[head + static_cast<size_t>(row) * D + (e - i * D)] = from_f32<T>(acc[r] / sL[i]);
+      if (row < N) o[head + static_cast<size_t>(row) * D + (e - i * D)] = acc[r] / sL[i];
     }
   }
   if (tid < kBQ && q0 + tid < N)
     lse[static_cast<size_t>(bh) * N + q0 + tid] = sM[tid] + logf(sL[tid]);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int BH,
                    int N, int D, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int q_tiles = (N + kBQ - 1) / kBQ;
-  flash_fwd_kernel<T><<<BH * q_tiles, kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, N, D, scale, q_tiles);
+  flash_fwd_kernel<<<BH * q_tiles, kAttnThreads, smem, stream>>>(q, k, v, o, lse, N, D, scale,
+                                                                 q_tiles);
   return cudaGetLastError();
 }
 
@@ -192,17 +188,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 }  // namespace ddpm
 
 // q, k, v, o: (BH, N, D) contiguous fp32, D <= 256; lse: (BH, N) fp32.
-extern "C" int ddpm_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int BH, int N, int D, float scale, int dtype,
-                                   int device, void* stream) {
+// (bf16 runs on tensor cores: ddpm_flash_attn_fwd_tc)
+extern "C" int ddpm_flash_attn_fwd(const float* q, const float* k, const float* v, float* o,
+                                   float* lse, int BH, int N, int D, float scale, int device,
+                                   void* stream) {
   if (BH < 1 || N < 1 || D < 1 || D > ddpm::kMaxD) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ddpm::kFloat32:
-      return ddpm::launch<float>(q, k, v, o, lse, BH, N, D, scale, s);
-    default:  // bf16 runs on tensor cores: ddpm_flash_attn_fwd_tc
-      return cudaErrorInvalidValue;
-  }
+  return ddpm::launch(q, k, v, o, lse, BH, N, D, scale, static_cast<cudaStream_t>(stream));
 }

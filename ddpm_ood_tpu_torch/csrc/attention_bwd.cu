@@ -24,7 +24,7 @@
 // tensor cores (csrc/attention_bwd_tc.cu). dQ serves both types.
 //
 // Design: tiles of BQ = 32 queries and BK = 32 keys held in shared memory as
-// fp32 (inputs are converted on load, so f32 and bf16 share one code path). At
+// fp32 (inputs are converted on load, so dQ's f32 and bf16 share one path). At
 // D = 256 a block holds Q, dO (32 x 256 each), K, V (32 x 257 each, rows padded
 // by one float so the 32 lanes computing 32 logits read 32 different banks),
 // P and dS (32 x 33 each): ~137 KB, above the 48 KB default, so the launcher
@@ -150,13 +150,13 @@ __device__ void p_and_ds(const Tiles& t, int q0, int k0, int N, int D, float sca
 }
 
 // One block per (bh, k-tile): dV = sum over q-tiles of P^T dO, dK of dS^T Q.
-template <typename T>
+// fp32 only (bf16 dK/dV runs on tensor cores).
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int N, int D, float scale,
-                         int k_tiles) {
+                         float* __restrict__ dk, float* __restrict__ dv, int N, int D,
+                         float scale, int k_tiles) {
   extern __shared__ float smem[];
   const Tiles t = carve(smem, D);
   const int lds = kBK + 1;
@@ -205,8 +205,8 @@ __global__ void __launch_bounds__(kThreads)
       const int row = k0 + j;
       if (row < N) {
         const size_t idx = head + static_cast<size_t>(row) * D + (e - j * D);
-        dk[idx] = from_f32<T>(acc_k[r]);
-        dv[idx] = from_f32<T>(acc_v[r]);
+        dk[idx] = acc_k[r];
+        dv[idx] = acc_v[r];
       }
     }
   }
@@ -273,18 +273,15 @@ cudaError_t prepare(Kernel kernel, int D, size_t* smem) {
                               static_cast<int>(*smem));
 }
 
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, void* dk, void* dv, int BH, int N,
-                       int D, float scale, cudaStream_t stream) {
+cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
+                       const float* lse, const float* delta, float* dk, float* dv, int BH,
+                       int N, int D, float scale, cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T>, D, &smem);
+  cudaError_t err = prepare(flash_bwd_dkv_kernel, D, &smem);
   if (err != cudaSuccess) return err;
   const int k_tiles = (N + kBK - 1) / kBK;
-  flash_bwd_dkv_kernel<T><<<BH * k_tiles, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, D,
-      scale, k_tiles);
+  flash_bwd_dkv_kernel<<<BH * k_tiles, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dk,
+                                                                 dv, N, D, scale, k_tiles);
   return cudaGetLastError();
 }
 
@@ -306,21 +303,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }  // namespace ddpm
 
 // q, k, v, dout, dk, dv: (BH, N, D) contiguous fp32, D <= 256; lse, delta: (BH, N)
-// fp32.
-extern "C" int ddpm_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
-                                       const void* dout, const float* lse, const float* delta,
-                                       void* dk, void* dv, int BH, int N, int D, float scale,
-                                       int dtype, int device, void* stream) {
+// fp32. (bf16 runs on tensor cores: ddpm_flash_attn_bwd_dkv_tc)
+extern "C" int ddpm_flash_attn_bwd_dkv(const float* q, const float* k, const float* v,
+                                       const float* dout, const float* lse, const float* delta,
+                                       float* dk, float* dv, int BH, int N, int D, float scale,
+                                       int device, void* stream) {
   if (BH < 1 || N < 1 || D < 1 || D > ddpm::kMaxD) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ddpm::kFloat32:
-      return ddpm::launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale, s);
-    default:  // bf16 runs on tensor cores: ddpm_flash_attn_bwd_dkv_tc
-      return cudaErrorInvalidValue;
-  }
+  return ddpm::launch_dkv(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // q, k, v, dout, dq: (BH, N, D) contiguous, D <= 256; lse, delta: (BH, N) fp32.

@@ -42,12 +42,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, gamma, beta, y, B, HW, C, G, eps, act, dtype, device, stream
     "ddpm_groupnorm_act": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # q, k, v, o, lse, BH, N, D, scale, dtype (fp32 only), device, stream
-    "ddpm_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, lse, BH, N, D, scale, device, stream (fp32, CUDA cores)
+    "ddpm_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, lse, BH, N, D, scale, device, stream (bf16, tensor cores)
     "ddpm_flash_attn_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, BH, N, D, scale, dtype (fp32 only), device, stream
-    "ddpm_flash_attn_bwd_dkv": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, BH, N, D, scale, device, stream (fp32, CUDA cores)
+    "ddpm_flash_attn_bwd_dkv": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     # q, k, v, dO, lse, delta, dk, dv, BH, N, D, scale, device, stream (bf16, tensor cores)
     "ddpm_flash_attn_bwd_dkv_tc": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     # q, k, v, dO, lse, delta, dq, BH, N, D, scale, dtype, device, stream

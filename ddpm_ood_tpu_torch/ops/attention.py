@@ -94,7 +94,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _kernels.call("ddpm_flash_attn_fwd_tc", *args, *target)
         flash_attention_fwd.tc_launches += 1
     else:
-        _kernels.call("ddpm_flash_attn_fwd", *args, _kernels.DTYPE_CODES[q.dtype], *target)
+        _kernels.call("ddpm_flash_attn_fwd", *args, *target)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -156,7 +156,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
         _kernels.call("ddpm_flash_attn_bwd_dkv_tc", *args, *target)
         flash_attention_bwd_dkv.tc_launches += 1
     else:
-        _kernels.call("ddpm_flash_attn_bwd_dkv", *args, _kernels.DTYPE_CODES[q.dtype], *target)
+        _kernels.call("ddpm_flash_attn_bwd_dkv", *args, *target)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
