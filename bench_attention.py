@@ -123,7 +123,9 @@ def main(argv=None) -> list:
     if not torch.cuda.is_available():
         raise RuntimeError("bench_attention needs a CUDA card")
     from ddpm_ood_tpu_torch.ops import _kernels
-    from ddpm_ood_tpu_torch.ops.attention import flash_attention_bwd_dkv, flash_attention_fwd
+    from ddpm_ood_tpu_torch.ops.attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+    )
 
     _kernels.library()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -137,7 +139,8 @@ def main(argv=None) -> list:
     # the tensor-core counters exist only where the bf16 kernels run on tensor cores
     print(json.dumps({"label": args.label, "launches": {
         fn.__name__: {"all": fn.launches, "tensor_core": getattr(fn, "tc_launches", None)}
-        for fn in (flash_attention_fwd, flash_attention_bwd_dkv)}}), flush=True)
+        for fn in (flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq)}}),
+        flush=True)
     return results
 
 

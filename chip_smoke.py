@@ -9,10 +9,12 @@ Phases, each fatal on failure:
   2. build    -- compiles ddpm_ood_tpu_torch/csrc/*.cu with nvcc (one process
                  per source, all at once), prints ptxas' register, spill and
                  shared-memory lines, and fails if a tensor-core kernel spills.
-  3. kernels  -- every kernel (GroupNorm, flash forward, flash backward dK/dV
-                 and dQ; bf16 forward and dK/dV on tensor cores, fp32 on CUDA
-                 cores) against its plain PyTorch version at the main paths'
-                 shapes and ragged ones, with the tolerance stated; each timed
+  3. kernels  -- every kernel (GroupNorm on thread-block clusters, and the
+                 one-block-per-group GroupNorm at a sample too large for a
+                 cluster; flash forward, flash backward dK/dV and dQ, bf16 on
+                 tensor cores, fp32 on CUDA cores) against its plain PyTorch
+                 version at the main paths' shapes and ragged ones, with the
+                 tolerance stated; each timed
                  (device time, CUDA events, the host's launch overhead hidden
                  behind a sleep kernel) beside its plain version, one PyTorch
                  library call computing the same function, and its bound.
@@ -25,13 +27,15 @@ Phases, each fatal on failure:
                  (ddpm_ood_tpu_torch.reconstruct) in this process: small UNet,
                  100-step PLMS, skip factor 4, batch 32. Checks the result CSVs
                  and that every UNet forward went through both forward kernels,
-                 every flash forward on tensor cores (bf16 autocast).
+                 every GroupNorm on the cluster kernel and every flash forward
+                 on tensor cores (bf16 autocast).
   7. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
-                 schema, the launch counts of all four kernels (every flash
-                 forward and dK/dV on tensor cores), and that the scoring CLI
+                 schema, the launch counts of all four kernels (every
+                 GroupNorm on the cluster kernel, every flash forward, dK/dV
+                 and dQ on tensor cores), and that the scoring CLI
                  loads the trained checkpoint.pth.
 
 Launch counts are set to 0 just before each of the two CLI runs and read just
@@ -73,8 +77,8 @@ ROOT = Path(__file__).resolve().parent
 # does (the plain forward rounds the normalised probabilities, the plain
 # backward nothing): 2^-9 relative per term, averaged out over the keys or
 # queries. A dK of 0, or one 2% off, fails. Readings on an NVIDIA H100 80GB
-# HBM3 at 700 W over ATTN_SHAPES (PERF.md, PR 4): dV 6.58e-3, dK 6.29e-3,
-# O 6.21e-3, dQ 3.7e-6 at most; on the CPU, tests/test_torch_attention_tc.py
+# HBM3 at 700 W over ATTN_SHAPES (PERF.md): O 6.94e-3, dV 6.67e-3, dQ
+# 6.06e-3, dK 5.68e-3 at most; on the CPU, tests/test_torch_attention_tc.py
 # emulates the kernels' rounding within 4.11e-3 of the fp32 JAX kernels by the
 # same measure. The fp32 row logsumexp is held to LSE_TOL, absolute, in both
 # dtypes (read at most 1.4e-6).
@@ -83,12 +87,16 @@ ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LSE_TOL = 1e-4
 GN_SHAPES = [(1024, 128), (1024, 256), (1024, 384), (256, 128), (256, 256),
              (256, 384), (256, 512), (64, 256), (64, 512)]
+# a sample over 8 blocks' shared memory in both dtypes (2 MB in bf16): the
+# one-block-per-group kernel of csrc/groupnorm.cu
+GN_OVERSIZED = [(4096, 256)]
 # (B*H, N, D): scoring's K*B = 64, training's batch of 128, and ragged ones: N
 # past a 64-key tile at D = 256, two key tiles at a D that pads to 64, three
 # at a D that pads to 128, and 16 key tiles at D = 64
 ATTN_SHAPES = [(64, 64, 256), (128, 64, 256), (8, 100, 256), (4, 72, 40), (2, 130, 96),
                (4, 1000, 64)]
-TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")  # ptxas must show no spill
+# ptxas must show no spill
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
 ATTN_SUMMARY = (128, 64, 256, torch.bfloat16)  # the training path's shape
 
 
@@ -166,18 +174,30 @@ def phase_kernels(dev: torch.device) -> dict:
         einsum_attention, einsum_logsumexp, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_reference, flash_attention_fwd,
     )
-    from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act, groupnorm_act_reference
+    from ddpm_ood_tpu_torch.ops.groupnorm import (
+        cluster_plan, groupnorm_act, groupnorm_act_reference,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for n, c in GN_SHAPES:
+        for n, c in GN_SHAPES + GN_OVERSIZED:
             x = (torch.rand((64, n, c), generator=gen, device=dev) * 2 - 1).to(dtype)
             gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
             beta = torch.rand((c,), generator=gen, device=dev) - 0.5
+            plan = cluster_plan(n, c, 32, x.element_size())
+            if (plan is None) != ((n, c) in GN_OVERSIZED):
+                raise PhaseError(f"groupnorm N={n} C={c} {dtype}: cluster plan {plan}")
+            kernel = f"cluster of {plan[0]}" if plan else "one block per group"
             for act in ("none", "silu"):
+                before = (groupnorm_act.launches, groupnorm_act.cluster_launches)
                 got = groupnorm_act(x, gamma, beta, 32, 1e-6, act)
+                moved = (groupnorm_act.launches - before[0],
+                         groupnorm_act.cluster_launches - before[1])
+                if moved != (1, int(plan is not None)):
+                    raise PhaseError(f"groupnorm N={n} C={c} {dtype}: launches moved by "
+                                     f"{moved}, the plan is {plan}")
                 ref = groupnorm_act_reference(x, gamma, beta, 32, 1e-6, act)
                 torch.cuda.synchronize()
                 err = (got.float() - ref.float()).abs().max().item()
@@ -190,6 +210,7 @@ def phase_kernels(dev: torch.device) -> dict:
                     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
                     lib = time_cuda(lambda: F.group_norm(x4, 32, g_lib, b_lib, 1e-6))
                 log(f"groupnorm B=64 N={n} C={c} G=32 {act:4s} {str(dtype)[6:]:8s} "
+                    f"({kernel}) "
                     f"max_abs_err={err:.3e} tol={GN_TOL[dtype]:.0e} kernel={ms:.4f} ms "
                     f"plain={plain:.4f} ms library="
                     + (f"{lib:.4f} ms" if lib is not None else "-")
@@ -287,14 +308,16 @@ def phase_kernels(dev: torch.device) -> dict:
     return summary
 
 
-# the main path runs bf16: forward and dK/dV on the tensor-core kernels
+# the main path runs bf16: GroupNorm on the cluster kernel, attention on the
+# tensor-core kernels
 KERNELS = {
-    "groupnorm_act": ("ddpm_ood_tpu_torch/csrc/groupnorm.cu", "ddpm_ood_tpu/ops/groupnorm.py:58"),
+    "groupnorm_act": ("ddpm_ood_tpu_torch/csrc/groupnorm_cluster.cu",
+                      "ddpm_ood_tpu/ops/groupnorm.py:58"),
     "flash_attention_fwd": ("ddpm_ood_tpu_torch/csrc/attention_fwd_tc.cu",
                             "ddpm_ood_tpu/ops/attention.py:51"),
     "flash_attention_bwd_dkv": ("ddpm_ood_tpu_torch/csrc/attention_bwd_tc.cu",
                                 "ddpm_ood_tpu/ops/attention.py:138"),
-    "flash_attention_bwd_dq": ("ddpm_ood_tpu_torch/csrc/attention_bwd.cu",
+    "flash_attention_bwd_dq": ("ddpm_ood_tpu_torch/csrc/attention_bwd_dq_tc.cu",
                                "ddpm_ood_tpu/ops/attention.py:181"),
 }
 # the main path: small UNet, 32x32x1, 100-step PLMS, skip factor 4, batch 32
@@ -428,14 +451,18 @@ def phase_main(dev: torch.device) -> dict:
         if launches["groupnorm_act"] != GN_PER_FORWARD * evals:
             raise PhaseError(f"groupnorm launches {launches['groupnorm_act']} != "
                              f"{GN_PER_FORWARD} x {evals}")
+        if launches["groupnorm_act_cluster"] != launches["groupnorm_act"]:
+            raise PhaseError(f"scoring ran {launches['groupnorm_act_cluster']} of "
+                             f"{launches['groupnorm_act']} GroupNorms on the cluster kernel")
         if launches["flash_attention_fwd"] != ATTN_PER_FORWARD * evals:
             raise PhaseError(f"attention launches {launches['flash_attention_fwd']} != "
                              f"{ATTN_PER_FORWARD} x {evals}")
         if launches["flash_attention_fwd_tc"] != launches["flash_attention_fwd"]:
             raise PhaseError(f"bf16 scoring ran {launches['flash_attention_fwd_tc']} of "
                              f"{launches['flash_attention_fwd']} flash forwards on tensor cores")
-        if (launches["flash_attention_bwd_dkv"] or launches["flash_attention_bwd_dq"]
-                or launches["flash_attention_bwd_dkv_tc"]):
+        if any(launches[name] for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                                           "flash_attention_bwd_dkv_tc",
+                                           "flash_attention_bwd_dq_tc")):
             raise PhaseError(f"scoring launched a backward kernel: {launches}")
         for name in ("val", "in", "checkerboard"):
             _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
@@ -475,7 +502,7 @@ def _launch_counters():
 
 
 # wrappers that also count their bf16 tensor-core launches, read as "<name>_tc"
-TC_COUNTED = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+TC_COUNTED = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
 def reset_launches() -> None:
@@ -483,12 +510,16 @@ def reset_launches() -> None:
         fn.launches = 0
         if name in TC_COUNTED:
             fn.tc_launches = 0
+    _launch_counters()["groupnorm_act"].cluster_launches = 0
 
 
 def read_launches() -> dict:
+    """Every launch count; "<name>_tc" the tensor-core launches, and
+    "groupnorm_act_cluster" GroupNorm's launches of the cluster kernel."""
     fns = _launch_counters()
     return {**{name: fn.launches for name, fn in fns.items()},
-            **{f"{name}_tc": fns[name].tc_launches for name in TC_COUNTED}}
+            **{f"{name}_tc": fns[name].tc_launches for name in TC_COUNTED},
+            "groupnorm_act_cluster": fns["groupnorm_act"].cluster_launches}
 
 
 def phase_train_step(dev: torch.device) -> None:
@@ -514,8 +545,9 @@ def phase_train_step(dev: torch.device) -> None:
     want = {"groupnorm_act": GN_PER_FORWARD, "flash_attention_fwd": ATTN_PER_FORWARD,
             "flash_attention_bwd_dkv": ATTN_PER_FORWARD,
             "flash_attention_bwd_dq": ATTN_PER_FORWARD,
-            # fp32: no launch on the bf16 tensor-core kernels
-            "flash_attention_fwd_tc": 0, "flash_attention_bwd_dkv_tc": 0}
+            # fp32: no launch on the bf16 tensor-core kernels; GroupNorm on clusters
+            "flash_attention_fwd_tc": 0, "flash_attention_bwd_dkv_tc": 0,
+            "flash_attention_bwd_dq_tc": 0, "groupnorm_act_cluster": GN_PER_FORWARD}
     if counts != want:
         raise PhaseError(f"one training step launched {counts}, expected {want}")
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
@@ -594,8 +626,10 @@ def phase_train(dev: torch.device) -> dict:
                 "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
                 "flash_attention_bwd_dkv": ATTN_PER_FORWARD * trainer.step.backwards,
                 "flash_attention_bwd_dq": ATTN_PER_FORWARD * trainer.step.backwards}
-        # bf16 autocast: every flash forward and dK/dV on tensor cores
+        # bf16 autocast: every flash kernel on tensor cores, every GroupNorm
+        # on the cluster kernel
         want.update({f"{name}_tc": want[name] for name in TC_COUNTED})
+        want["groupnorm_act_cluster"] = want["groupnorm_act"]
         log(f"train: {trainer.step.backwards} training steps, {trainer.step.forwards} train/eval "
             f"UNet forwards + {trainer.sample_forwards} sampler forwards; launches {launches}")
         if trainer.step.backwards != steps or trainer.sample_forwards != 1000:
@@ -663,6 +697,9 @@ def main() -> int:
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in TC_COUNTED:
             row["tensor_core_launches"] = score[f"{name}_tc"] + train[f"{name}_tc"]
+        if name == "groupnorm_act":
+            row["cluster_launches"] = (score["groupnorm_act_cluster"]
+                                       + train["groupnorm_act_cluster"])
         kernels.append({**row, **summary[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

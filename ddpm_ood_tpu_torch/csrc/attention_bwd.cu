@@ -1,7 +1,7 @@
 // Flash-attention backward: dQ, dK, dV of O = softmax(Q K^T * scale) V from
 // the forward's per-row logsumexp, without the (N, N) probabilities ever
-// reaching device memory. Q, K, V, dO, dQ, dK, dV are (BH, N, D) contiguous in
-// f32 or bf16; lse and delta = rowsum(dO * O) are (BH, N) fp32.
+// reaching device memory. Q, K, V, dO, dQ, dK, dV are (BH, N, D) contiguous
+// fp32; lse and delta = rowsum(dO * O) are (BH, N) fp32.
 //
 // Replaces the TPU kernels ddpm_ood_tpu/ops/attention.py:_flash_bwd_dkv_kernel
 // and _flash_bwd_dq_kernel (both launched by _flash_bwd_impl). Same math:
@@ -20,11 +20,10 @@
 // sequences the flops grow as N^2 and this CUDA-core version becomes
 // compute-bound; tensor cores (wgmma) are later work.
 //
-// The dK/dV kernel here serves fp32 inputs only; bf16 dK/dV runs on
-// tensor cores (csrc/attention_bwd_tc.cu). dQ serves both types.
+// Both kernels here serve fp32 inputs only; bf16 runs on tensor cores
+// (csrc/attention_bwd_tc.cu for dK/dV, csrc/attention_bwd_dq_tc.cu for dQ).
 //
-// Design: tiles of BQ = 32 queries and BK = 32 keys held in shared memory as
-// fp32 (inputs are converted on load, so dQ's f32 and bf16 share one path). At
+// Design: tiles of BQ = 32 queries and BK = 32 keys held in shared memory. At
 // D = 256 a block holds Q, dO (32 x 256 each), K, V (32 x 257 each, rows padded
 // by one float so the 32 lanes computing 32 logits read 32 different banks),
 // P and dS (32 x 33 each): ~137 KB, above the 48 KB default, so the launcher
@@ -73,8 +72,8 @@ __device__ __forceinline__ Tiles carve(float* smem, int D) {
 }
 
 // Q, dO rows q0.. of head `head` (and their lse, delta); rows past N are 0.
-template <typename T>
-__device__ void load_q_tile(const Tiles& t, const T* __restrict__ q, const T* __restrict__ dout,
+__device__ void load_q_tile(const Tiles& t, const float* __restrict__ q,
+                            const float* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             size_t head, size_t row_base, int q0, int N, int D) {
   for (int e = threadIdx.x; e < kBQ * D; e += kThreads) {
@@ -83,8 +82,8 @@ __device__ void load_q_tile(const Tiles& t, const T* __restrict__ q, const T* __
     float qv = 0.f, ov = 0.f;
     if (row < N) {
       const size_t idx = head + static_cast<size_t>(row) * D + (e - i * D);
-      qv = to_f32(q[idx]);
-      ov = to_f32(dout[idx]);
+      qv = q[idx];
+      ov = dout[idx];
     }
     t.q[e] = qv;
     t.dout[e] = ov;
@@ -97,8 +96,8 @@ __device__ void load_q_tile(const Tiles& t, const T* __restrict__ q, const T* __
 }
 
 // K, V rows k0.. into the padded tiles; rows past N are 0.
-template <typename T>
-__device__ void load_kv_tile(const Tiles& t, const T* __restrict__ k, const T* __restrict__ v,
+__device__ void load_kv_tile(const Tiles& t, const float* __restrict__ k,
+                             const float* __restrict__ v,
                              size_t head, int k0, int N, int D) {
   const int ldk = D + 1;
   for (int e = threadIdx.x; e < kBK * D; e += kThreads) {
@@ -108,8 +107,8 @@ __device__ void load_kv_tile(const Tiles& t, const T* __restrict__ k, const T* _
     float kv = 0.f, vv = 0.f;
     if (row < N) {
       const size_t idx = head + static_cast<size_t>(row) * D + d;
-      kv = to_f32(k[idx]);
-      vv = to_f32(v[idx]);
+      kv = k[idx];
+      vv = v[idx];
     }
     t.k[j * ldk + d] = kv;
     t.v[j * ldk + d] = vv;
@@ -213,12 +212,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // One block per (bh, q-tile): dQ = sum over k-tiles of dS K.
-template <typename T>
+// fp32 only (bf16 dQ runs on tensor cores).
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dq, int N, int D, float scale, int q_tiles) {
+                        float* __restrict__ dq, int N, int D, float scale, int q_tiles) {
   extern __shared__ float smem[];
   const Tiles t = carve(smem, D);
   const int ldk = D + 1;
@@ -261,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
     if (e < kBQ * D) {
       const int i = e / D;
       const int row = q0 + i;
-      if (row < N) dq[head + static_cast<size_t>(row) * D + (e - i * D)] = from_f32<T>(acc[r]);
+      if (row < N) dq[head + static_cast<size_t>(row) * D + (e - i * D)] = acc[r];
     }
   }
 }
@@ -285,17 +284,15 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, void* dq, int BH, int N, int D,
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
+                      const float* lse, const float* delta, float* dq, int BH, int N, int D,
                       float scale, cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T>, D, &smem);
+  cudaError_t err = prepare(flash_bwd_dq_kernel, D, &smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (N + kBQ - 1) / kBQ;
-  flash_bwd_dq_kernel<T><<<BH * q_tiles, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), N, D, scale, q_tiles);
+  flash_bwd_dq_kernel<<<BH * q_tiles, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                                N, D, scale, q_tiles);
   return cudaGetLastError();
 }
 
@@ -315,21 +312,15 @@ extern "C" int ddpm_flash_attn_bwd_dkv(const float* q, const float* k, const flo
                           static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, dout, dq: (BH, N, D) contiguous, D <= 256; lse, delta: (BH, N) fp32.
-extern "C" int ddpm_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
-                                      const void* dout, const float* lse, const float* delta,
-                                      void* dq, int BH, int N, int D, float scale, int dtype,
-                                      int device, void* stream) {
+// q, k, v, dout, dq: (BH, N, D) contiguous fp32, D <= 256; lse, delta: (BH, N)
+// fp32. (bf16 runs on tensor cores: ddpm_flash_attn_bwd_dq_tc)
+extern "C" int ddpm_flash_attn_bwd_dq(const float* q, const float* k, const float* v,
+                                      const float* dout, const float* lse, const float* delta,
+                                      float* dq, int BH, int N, int D, float scale, int device,
+                                      void* stream) {
   if (BH < 1 || N < 1 || D < 1 || D > ddpm::kMaxD) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ddpm::kFloat32:
-      return ddpm::launch_dq<float>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, s);
-    case ddpm::kBFloat16:
-      return ddpm::launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return ddpm::launch_dq(q, k, v, dout, lse, delta, dq, BH, N, D, scale,
+                         static_cast<cudaStream_t>(stream));
 }

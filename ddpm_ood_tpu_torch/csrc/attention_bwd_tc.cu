@@ -1,8 +1,8 @@
 // Flash-attention backward dK/dV for bf16 on Hopper tensor cores, from the
 // forward's per-row logsumexp. Q, K, V, dO, dK, dV are (BH, N, D) contiguous
 // bf16, D a multiple of 8 up to 256; lse and delta = rowsum(dO * O) are
-// (BH, N) fp32. fp32 inputs keep the CUDA-core kernel of csrc/attention_bwd.cu,
-// and so does dQ for both types.
+// (BH, N) fp32. fp32 inputs keep the CUDA-core kernel of csrc/attention_bwd.cu;
+// bf16 dQ has its own tensor-core kernel (csrc/attention_bwd_dq_tc.cu).
 //
 // Replaces the TPU kernel ddpm_ood_tpu/ops/attention.py:_flash_bwd_dkv_kernel
 // (launched by _flash_bwd_impl). Same math:

@@ -1,4 +1,8 @@
-// Fused GroupNorm (+ optional SiLU) forward over channel-last activations.
+// Fused GroupNorm (+ optional SiLU) forward over channel-last activations,
+// one block per (sample, group). The main paths take the cluster kernel of
+// csrc/groupnorm_cluster.cu; this one serves the shapes its plan refuses
+// (ops/groupnorm.py:cluster_plan): a sample over 8 blocks' shared memory, C
+// not a whole number of 16-byte vectors, or x off a 16-byte boundary.
 //
 // Replaces the TPU kernel ddpm_ood_tpu/ops/groupnorm.py:_gn_kernel (launched
 // by _pallas_fwd). Same math: per (sample, group) fp32 sums of x and x^2,

@@ -5,13 +5,13 @@ a ``torch.autograd.Function`` over three hand-written kernels: the flash
 forward (which saves the per-row logsumexp) and the two flash backward
 kernels, dK/dV then dQ. The wrappers choose the kernel by dtype:
 
-- bf16 forward and dK/dV run on tensor cores (``csrc/attention_fwd_tc.cu``,
-  ``csrc/attention_bwd_tc.cu``: mma.sync, counted in ``.tc_launches`` as well
-  as ``.launches``); they take a head dim that is a multiple of 8 and tensors
-  on 16-byte boundaries, and any other bf16 shape raises ValueError;
-- fp32 forward and dK/dV run the CUDA-core kernels (``csrc/attention.cu``,
-  ``csrc/attention_bwd.cu``);
-- dQ runs the CUDA-core kernel of ``csrc/attention_bwd.cu`` for both.
+- bf16 runs on tensor cores (``csrc/attention_fwd_tc.cu``,
+  ``csrc/attention_bwd_tc.cu``, ``csrc/attention_bwd_dq_tc.cu``: mma.sync,
+  counted in ``.tc_launches`` as well as ``.launches``); these take a head
+  dim that is a multiple of 8 and tensors on 16-byte boundaries, and any
+  other bf16 shape raises ValueError;
+- fp32 runs the CUDA-core kernels (``csrc/attention.cu``,
+  ``csrc/attention_bwd.cu``).
 
 A kernel that does not build or launch raises; nothing falls back. On CPU
 tensors ``attention`` runs ``einsum_attention``, the plain PyTorch version,
@@ -163,12 +163,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
     """Launch the dQ kernel: dq in q's dtype. Counts launches in
-    ``flash_attention_bwd_dq.launches``."""
+    ``flash_attention_bwd_dq.launches``, the bf16 tensor-core ones also in
+    ``flash_attention_bwd_dq.tc_launches``."""
     target = _kernels.cuda_target(q, "flash_attention_bwd_dq")
     _check_bwd_args(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _kernels.call("ddpm_flash_attn_bwd_dq", *_bwd_args(q, k, v, do, lse, delta, (dq,), sm_scale),
-                  _kernels.DTYPE_CODES[q.dtype], *target)
+    args = _bwd_args(q, k, v, do, lse, delta, (dq,), sm_scale)
+    if q.dtype == torch.bfloat16:
+        _kernels.call("ddpm_flash_attn_bwd_dq_tc", *args, *target)
+        flash_attention_bwd_dq.tc_launches += 1
+    else:
+        _kernels.call("ddpm_flash_attn_bwd_dq", *args, *target)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -176,6 +181,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float):

@@ -2,9 +2,16 @@
 
 Port of ``ddpm_ood_tpu/ops/groupnorm.py``. ``groupnorm_act`` takes the JAX
 package's layout, x of shape (B, *spatial, C), and gamma/beta of shape (C,)
-in fp32. On a CUDA tensor it launches the hand-written kernel
-``csrc/groupnorm.cu`` (or raises); on a CPU tensor it runs
-``groupnorm_act_reference``, the plain PyTorch version of the same math.
+in fp32. On a CUDA tensor it launches a hand-written kernel (or raises); on
+a CPU tensor it runs ``groupnorm_act_reference``, the plain PyTorch version
+of the same math. Which kernel is chosen by shape, before the launch:
+``cluster_plan`` gives the thread-block cluster kernel
+``csrc/groupnorm_cluster.cu`` (one cluster of 1-8 blocks per sample, the
+sample read once into shared memory; counted in ``.cluster_launches`` as well
+as ``.launches``) every shape whose sample fits 8 blocks' shared memory, and
+the rest (and x off a 16-byte boundary) take the one-block-per-group kernel
+``csrc/groupnorm.cu``. Nothing falls back on a failure: a kernel that does
+not build or launch raises.
 On CUDA the kernel sits in a ``torch.autograd.Function`` whose backward is
 the VJP of the plain version, as in the JAX package.
 The UNet runs in ``torch.channels_last``, so its (B, C, H, W) activations
@@ -15,10 +22,54 @@ a copy.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from . import _kernels
+
+# The cluster kernel's shared-memory plan (csrc/groupnorm_cluster.cu `layout`
+# computes the same bytes). An H100 SM has 233,472 bytes of shared memory and
+# reserves 1,024 of them for each resident block; one block may use 232,448.
+VECTOR_BYTES = 16  # a thread's channels in a row: 8 bf16 or 4 fp32
+MAX_THREADS = 256
+CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable cluster limit
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
+BLOCK_MAX_SHARED_BYTES = 232_448
+# tried in turn: two blocks to an SM, then one
+SHARED_BUDGETS = (SM_SHARED_BYTES // 2 - BLOCK_RESERVED_BYTES, BLOCK_MAX_SHARED_BYTES)
+
+
+def cluster_lanes(c: int, itemsize: int) -> int:
+    """Row lanes of a cluster-kernel block: each of its threads owns one
+    16-byte vector of a row (vectors x lanes threads), and the lanes split the
+    rows; 0 where a row has more vectors than a block has threads."""
+    vecs = c * itemsize // VECTOR_BYTES
+    return MAX_THREADS // vecs if vecs else 0
+
+
+def cluster_smem_bytes(n: int, c: int, g: int, s: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of an s-block cluster: its slice of
+    ceil(n / s) rows x c channels, the per-lane channel sums of x and x^2,
+    and the group sums and statistics (fp32)."""
+    return -(-n // s) * c * itemsize + 2 * cluster_lanes(c, itemsize) * c * 4 + 4 * g * 4
+
+
+def cluster_plan(n: int, c: int, g: int, itemsize: int) -> Optional[Tuple[int, int]]:
+    """(cluster size, shared-memory bytes per block) of the cluster kernel for
+    samples of n rows x c channels in g groups, or None where it does not
+    take the shape: c not a whole number of 16-byte vectors, more than 256
+    vectors a row, or a sample over 8 blocks' shared memory. The smallest
+    cluster whose blocks fit two to an SM, else the smallest that fits one."""
+    if (c * itemsize) % VECTOR_BYTES or cluster_lanes(c, itemsize) < 1:
+        return None
+    for budget in SHARED_BUDGETS:
+        for s in CLUSTER_SIZES:
+            smem = cluster_smem_bytes(n, c, g, s, itemsize)
+            if smem <= budget:
+                return s, smem
+    return None
 
 
 def groupnorm_act_reference(
@@ -64,15 +115,21 @@ def _check_cuda_args(x, gamma, beta, num_groups, act):
 
 
 def _launch(x, gamma, beta, num_groups, eps, act):
-    """One launch of the CUDA kernel; counts it in ``groupnorm_act.launches``."""
+    """One launch of a CUDA kernel, chosen by ``cluster_plan``; counts it in
+    ``groupnorm_act.launches``, and the cluster kernel's also in
+    ``groupnorm_act.cluster_launches``."""
     b, c = x.shape[0], x.shape[-1]
     n = math.prod(x.shape[1:-1])
     out = torch.empty_like(x)
-    _kernels.call(
-        "ddpm_groupnorm_act", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        b, n, c, num_groups, float(eps), int(act == "silu"),
-        _kernels.DTYPE_CODES[x.dtype], *_kernels.cuda_target(x, "groupnorm_act"),
-    )
+    target = _kernels.cuda_target(x, "groupnorm_act")
+    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), b, n, c,
+            num_groups, float(eps), int(act == "silu"), _kernels.DTYPE_CODES[x.dtype])
+    plan = cluster_plan(n, c, num_groups, x.element_size())
+    if plan is not None and x.data_ptr() % VECTOR_BYTES == 0:
+        _kernels.call("ddpm_groupnorm_act_cluster", *args, *plan, *target)
+        groupnorm_act.cluster_launches += 1
+    else:
+        _kernels.call("ddpm_groupnorm_act", *args, *target)
     groupnorm_act.launches += 1
     return out
 
@@ -109,9 +166,10 @@ def groupnorm_act(
 ) -> torch.Tensor:
     """GroupNorm (+ SiLU) over channel-last x (B, *spatial, C).
 
-    CPU tensors take the plain version; CUDA tensors the kernel, which counts
-    its launches in ``groupnorm_act.launches`` and is differentiable in x,
-    gamma and beta. Anything else raises."""
+    CPU tensors take the plain version; CUDA tensors a kernel (see the module
+    docstring), which counts its launches in ``groupnorm_act.launches`` (the
+    cluster kernel's also in ``groupnorm_act.cluster_launches``) and is
+    differentiable in x, gamma and beta. Anything else raises."""
     if x.device.type == "cpu":
         return groupnorm_act_reference(x, gamma, beta, num_groups, eps, act)
     if x.device.type != "cuda":
@@ -121,3 +179,4 @@ def groupnorm_act(
 
 
 groupnorm_act.launches = 0
+groupnorm_act.cluster_launches = 0

@@ -1,9 +1,9 @@
 """The bf16 tensor-core attention kernels: their dispatch, and their rounding.
 
 Dispatch: with a stand-in for the ctypes library (the CPU tests have no card), bf16
-tensors reach ``ddpm_flash_attn_fwd_tc`` and ``ddpm_flash_attn_bwd_dkv_tc``,
-fp32 tensors the CUDA-core entry points, and dQ the CUDA-core kernel for both,
-each with the argument order and ctypes types that ``_kernels.SIGNATURES``
+tensors reach ``ddpm_flash_attn_fwd_tc``, ``ddpm_flash_attn_bwd_dkv_tc`` and
+``ddpm_flash_attn_bwd_dq_tc``, fp32 tensors the CUDA-core entry points, each
+with the argument order and ctypes types that ``_kernels.SIGNATURES``
 declares for ``_kernels.library()``. The tensor-core counters move only for
 bf16, and a bf16 shape the tensor-core kernels cannot take raises ValueError
 before anything is called.
@@ -12,8 +12,8 @@ Rounding: the CUDA kernels run only on the card, so ``_emulate_fwd`` and
 ``_emulate_bwd`` stand in for them here: they repeat, in plain torch on the
 CPU, where the kernels round: the forward's unnormalised probabilities to
 bf16 before P V (per 64-key tile of the online softmax), the backward's P and
-dS to bf16 before dV = P^T dO and dK = dS^T Q, every output to bf16; dQ (the
-CUDA-core kernel) rounds only its output. From bf16 inputs of std 0.5 each
+dS to bf16 before dV = P^T dO, dK = dS^T Q and dQ = dS K, every output to
+bf16. From bf16 inputs of std 0.5 each
 output tensor stays within 1e-2 of the fp32 JAX ``einsum_attention`` and of
 ``jax.grad`` of the JAX Pallas ``flash_attention`` in interpret mode on the
 same values, relative to the JAX tensor's largest |value|: chip_smoke.py's
@@ -103,8 +103,8 @@ DISPATCH = {
     ("fwd", torch.float32): ("ddpm_flash_attn_fwd", None),
     ("dkv", torch.bfloat16): ("ddpm_flash_attn_bwd_dkv_tc", None),
     ("dkv", torch.float32): ("ddpm_flash_attn_bwd_dkv", None),
-    ("dq", torch.bfloat16): ("ddpm_flash_attn_bwd_dq", 1),
-    ("dq", torch.float32): ("ddpm_flash_attn_bwd_dq", 0),
+    ("dq", torch.bfloat16): ("ddpm_flash_attn_bwd_dq_tc", None),
+    ("dq", torch.float32): ("ddpm_flash_attn_bwd_dq", None),
 }
 
 
@@ -125,15 +125,18 @@ def test_dtype_chooses_the_entry_point(lib, kernel, dtype):
     assert all(t.dtype == dtype for t in outs if t.dim() == 4)
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+WRAPPERS = {"fwd": attn_mod.flash_attention_fwd, "dkv": attn_mod.flash_attention_bwd_dkv,
+            "dq": attn_mod.flash_attention_bwd_dq}
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
 def test_tensor_core_counters_move_only_for_bf16(lib, kernel):
-    fn = attn_mod.flash_attention_fwd if kernel == "fwd" else attn_mod.flash_attention_bwd_dkv
+    fn = WRAPPERS[kernel]
     launches, tc = fn.launches, fn.tc_launches
     _call(kernel, *_inputs(torch.float32))
     assert (fn.launches, fn.tc_launches) == (launches + 1, tc)
     _call(kernel, *_inputs(torch.bfloat16))
     assert (fn.launches, fn.tc_launches) == (launches + 2, tc + 1)
-    assert not hasattr(attn_mod.flash_attention_bwd_dq, "tc_launches")
 
 
 def _misaligned(shape, dtype=torch.bfloat16):
@@ -154,13 +157,11 @@ def test_bf16_shapes_the_kernels_refuse_raise_before_any_call(lib, kernel, case)
         q = _misaligned(shape)
     if case == "do_misaligned":
         do = _misaligned(shape)
-    counts = (attn_mod.flash_attention_fwd.tc_launches,
-              attn_mod.flash_attention_bwd_dkv.tc_launches)
+    counts = [(fn.launches, fn.tc_launches) for fn in WRAPPERS.values()]
     with pytest.raises(ValueError, match="bf16"):
         _call(kernel, q, k, v, do, lse, delta)
     assert lib.calls == []
-    assert counts == (attn_mod.flash_attention_fwd.tc_launches,
-                      attn_mod.flash_attention_bwd_dkv.tc_launches)
+    assert counts == [(fn.launches, fn.tc_launches) for fn in WRAPPERS.values()]
 
 
 def test_fp32_takes_any_head_dim(lib):
@@ -171,7 +172,7 @@ def test_fp32_takes_any_head_dim(lib):
 
 @pytest.mark.parametrize("dtype,want", [
     (torch.bfloat16, ["ddpm_flash_attn_fwd_tc", "ddpm_flash_attn_bwd_dkv_tc",
-                      "ddpm_flash_attn_bwd_dq"]),
+                      "ddpm_flash_attn_bwd_dq_tc"]),
     (torch.float32, ["ddpm_flash_attn_fwd", "ddpm_flash_attn_bwd_dkv",
                      "ddpm_flash_attn_bwd_dq"]),
 ], ids=["bf16", "fp32"])
@@ -219,7 +220,7 @@ def _emulate_fwd(q, k, v, scale):
 def _emulate_bwd(q, k, v, o, lse, do, scale):
     """(dq, dk, dv) in bf16 as the card's backward computes them: delta in
     torch, dK/dV from P and dS rounded to bf16 (csrc/attention_bwd_tc.cu), dQ
-    from fp32 dS (the CUDA-core kernel of csrc/attention_bwd.cu)."""
+    from dS rounded to bf16 (csrc/attention_bwd_dq_tc.cu)."""
     b, h, n, _ = q.shape
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     delta = (dof * o.float()).sum(-1, keepdim=True)
@@ -228,7 +229,7 @@ def _emulate_bwd(q, k, v, o, lse, do, scale):
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", _bf16(p), dof)
     dk = torch.einsum("bhqk,bhqd->bhkd", _bf16(ds), qf)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", _bf16(ds), kf)
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
