@@ -22,14 +22,27 @@ Phases, each fatal on failure:
                  against the same weights through the plain versions on the CPU.
   5. step     -- one fp32 training step of the same UNet (loss and every
                  parameter gradient), card against CPU.
-  6. main     -- writes a synthetic 32x32 grayscale set and a seeded
+  6. metrics  -- the scoring metrics tail (recon/sweep.py:metrics_tail: MSE,
+                 LPIPS from a seeded npz in the JAX package's key schema, 1 -
+                 SSIM, the error-map sums) on one seeded (25, 32, 32, 32, 1)
+                 batch of reconstructions, card against CPU (fp32, TF32 off),
+                 and its device time per scored batch beside the UNet
+                 forwards' (CUDA events).
+  7. main     -- writes a synthetic 32x32 grayscale set and a seeded
                  reference-schema checkpoint.pth, then runs the scoring CLI
                  (ddpm_ood_tpu_torch.reconstruct) in this process: small UNet,
-                 100-step PLMS, skip factor 4, batch 32. Checks the result CSVs
+                 100-step PLMS, skip factor 4, batch 32, LPIPS from the npz,
+                 --score_ssim=1 --save_error_maps=1. Checks the result CSVs
+                 (finite, non-zero perceptual_difference and ssim_distance in
+                 every row), one error map per image, that LPIPS read the npz,
                  and that every UNet forward went through both forward kernels,
                  every GroupNorm on the cluster kernel and every flash forward
                  on tensor cores (bf16 autocast).
-  7. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
+  8. ood      -- ddpm_ood_tpu_torch.ood's run_ood_detection on those CSVs
+                 (numpy only) for the plot targets mse, perceptual_difference,
+                 mse+perceptual and ssim_distance: AUROC, AUPR, FPR@95 and the
+                 DeLong CI, each AUROC finite in [0, 1], ood_scores_*.csv written.
+  9. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
@@ -48,6 +61,7 @@ from __future__ import annotations
 import csv
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -327,6 +341,14 @@ MAIN_ARGS = ["--model_type=small", "--image_size=32", "--is_grayscale=1",
 N_IMAGES = 32
 GN_PER_FORWARD, ATTN_PER_FORWARD = 27, 4  # small UNet: 11 res blocks x 2 + 4 attn + out
 FWD_TOL = 1e-3  # fp32 UNet / sweep, card vs CPU, relative to the output's scale
+SMOKE_MODEL = "smoke_fashionmnist"
+SCORE_COLUMNS = ("mse", "perceptual_difference", "ssim_distance")
+# the metrics tail, fp32 card vs CPU with TF32 off: max abs error over the
+# CPU's largest |value|, each of mse, LPIPS, 1 - SSIM and the error-map sums.
+# cuDNN and oneDNN sum the AlexNet convolutions in different orders; a few
+# 1e-6 is expected (PERF.md has the readings)
+METRICS_TOL = 1e-4
+OOD_TARGETS = ("mse", "perceptual_difference", "mse+perceptual", "ssim_distance")
 
 
 def seeded_small_unet(seed: int):
@@ -401,71 +423,200 @@ def _write_dataset(root: Path) -> dict:
 
 
 def _check_csv(path: Path, t_starts) -> None:
+    """Every image at every start point, and in every row a finite mse and
+    finite perceptual_difference and ssim_distance, which are not all zero."""
     if not path.is_file():
         raise PhaseError(f"missing results CSV {path.name}")
     with open(path, newline="") as fh:
         rows = list(csv.DictReader(fh))
     per_image = {}
     for r in rows:
-        mse = float(r["mse"])
-        if not math.isfinite(mse):
-            raise PhaseError(f"{path.name}: non-finite mse in {r}")
+        values = [float(r.get(c) or "nan") for c in SCORE_COLUMNS]
+        if not all(map(math.isfinite, values)):
+            raise PhaseError(f"{path.name}: a score of {SCORE_COLUMNS} is missing or not "
+                             f"finite in {r}")
         per_image.setdefault(r["filename"], []).append(int(r["t"]))
     if len(per_image) != N_IMAGES or any(sorted(v) != sorted(t_starts) for v in per_image.values()):
         raise PhaseError(f"{path.name}: expected {N_IMAGES} images x {len(t_starts)} start points, "
                          f"got {len(rows)} rows over {len(per_image)} images")
-    log(f"  {path.name}: {len(rows)} rows, {len(t_starts)} per image, all mse finite")
+    for c in SCORE_COLUMNS[1:]:
+        if not any(float(r[c]) for r in rows):
+            raise PhaseError(f"{path.name}: {c} is 0 in every row")
+    log(f"  {path.name}: {len(rows)} rows, {len(t_starts)} per image, {', '.join(SCORE_COLUMNS)} "
+        "finite in every row")
 
 
-def phase_main(dev: torch.device) -> dict:
+def _write_lpips_npz(path: Path, seed: int = 0) -> Path:
+    """LPIPS weights in the key schema of the JAX package's save_lpips_npz
+    (HWIO kernels, (C, 1) lin weights, some negative), drawn with numpy from a
+    seed: the card runs LPIPS from an npz, as scoring with real weights does."""
+    from ddpm_ood_tpu_torch.losses.lpips import ALEX_CHANNELS, ALEX_CONVS
+
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for name, cin, cout, k, _, _ in ALEX_CONVS:
+        arrays[f"params/net/{name}/kernel"] = (
+            rng.standard_normal((k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
+        arrays[f"params/net/{name}/bias"] = (0.01 * rng.standard_normal(cout)).astype(np.float32)
+    for i, c in enumerate(ALEX_CHANNELS):
+        arrays[f"params/lin{i}"] = (rng.standard_normal((c, 1)) / np.sqrt(c)).astype(np.float32)
+    np.savez(path, **arrays)
+    return path
+
+
+def _npz_state_dict(npz: Path) -> dict:
+    from ddpm_ood_tpu_torch.losses.lpips import load_lpips_npz
+    from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict
+
+    return jax_lpips_params_to_state_dict(load_lpips_npz(str(npz)))
+
+
+def phase_metrics(dev: torch.device, npz: Path) -> dict:
+    """The metrics tail, card against CPU on one seeded batch of
+    reconstructions; then its device time per scored batch of the main path
+    (16 lane groups: the tail runs once per group) beside the UNet forwards'."""
+    from collections import Counter
+
+    from bench_attention import time_cuda
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.losses.lpips import PerceptualLoss
+    from ddpm_ood_tpu_torch.ops.ssim import ssim_distance
+    from ddpm_ood_tpu_torch.recon.sweep import group_t_starts, metrics_tail
+
+    ts = pndm_timesteps(1000, 100)
+    groups = group_t_starts(ts, pndm_start_points(ts, 4), 16)
+    k_all = sum(len(st) for _, st in groups)
+    rng = np.random.default_rng(3)
+    images = rng.uniform(size=(N_IMAGES, 32, 32, 1)).astype(np.float32)
+    recon = (images + 0.2 * rng.standard_normal((k_all,) + images.shape)).astype(np.float32)
+    names = ("mse", "perceptual_difference", "ssim_distance", "error_maps")
+    out, perceptual = {}, {}
+    for side, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        perceptual[side] = PerceptualLoss(weights_path=str(npz)).to(device).eval()
+        with torch.no_grad():
+            mse, perc, _, ssim_d, err = metrics_tail(
+                torch.from_numpy(images).to(device), torch.from_numpy(recon).to(device), 1.0,
+                perceptual[side], score_ssim=True, score_error_maps=True)
+        out[side] = dict(zip(names, (t.cpu() for t in (mse, perc, ssim_d, err))))
+    errs = {}
+    for name in names:
+        ref, got = out["cpu"][name], out["card"][name]
+        if ref.abs().max().item() == 0.0:
+            raise PhaseError(f"metrics: {name} is all zero on the CPU")
+        errs[name] = (got - ref).abs().max().item() / ref.abs().max().item()
+    log(f"metrics: (K, B) = ({k_all}, {N_IMAGES}) 32x32x1, fp32 card vs CPU, max abs error over "
+        f"the CPU's largest |value|: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f"; tol {METRICS_TOL:.0e}")
+    bad = {n: e for n, e in errs.items() if not (math.isfinite(e) and e <= METRICS_TOL)}
+    if bad:
+        raise PhaseError(f"metrics tail on the card disagrees with the CPU: {bad}")
+
+    # device ms per scored batch: the tail once per lane group; the UNet once
+    # per step of each group's grid, on k * 32 images under bf16 autocast
+    unet = seeded_small_unet(0).to(dev, memory_format=torch.channels_last).eval()
+    img = torch.from_numpy(images).to(dev)
+    per_batch = {"metrics_tail": 0.0, "lpips": 0.0, "ssim": 0.0, "unet_forwards": 0.0}
+    fn = perceptual["card"]
+    with torch.no_grad():
+        for k, count in sorted(Counter(len(st) for _, st in groups).items()):
+            rec = torch.from_numpy(recon[:k]).to(dev)
+            steps = sum(len(tg) for tg, st in groups if len(st) == k)
+            x = torch.randn((k * N_IMAGES, 1, 32, 32), device=dev).to(
+                memory_format=torch.channels_last)
+            t = torch.full((k * N_IMAGES,), 500, device=dev)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                fwd = time_cuda(lambda: unet(x, t), iters=3)
+            per_batch["unet_forwards"] += steps * fwd
+            per_batch["metrics_tail"] += count * time_cuda(
+                lambda: metrics_tail(img, rec, 1.0, fn, score_ssim=True, score_error_maps=True))
+            per_batch["lpips"] += count * time_cuda(lambda: fn(img, rec))
+            per_batch["ssim"] += count * time_cuda(
+                lambda: ssim_distance(img.expand_as(rec).flatten(0, 1), rec.flatten(0, 1)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, st in groups:
+            metrics_tail(img, torch.from_numpy(recon[:len(st)]).to(dev), 1.0, fn,
+                         score_ssim=True, score_error_maps=True)
+        torch.cuda.synchronize()
+        per_batch["metrics_tail_wall"] = (time.perf_counter() - t0) * 1e3
+    share = per_batch["metrics_tail"] / (per_batch["metrics_tail"] + per_batch["unet_forwards"])
+    log(f"metrics: device ms per scored batch (32 images, {k_all} start points, {len(groups)} "
+        f"lane groups): metrics tail {per_batch['metrics_tail']:.3f} (LPIPS "
+        f"{per_batch['lpips']:.3f}, SSIM {per_batch['ssim']:.3f}) against the UNet forwards' "
+        f"{per_batch['unet_forwards']:.2f}, a {100 * share:.2f}% share; the tail's host-clock "
+        f"wall {per_batch['metrics_tail_wall']:.2f} ms; card {CARD}")
+    summary = {"max_rel_err": errs, "tol": METRICS_TOL, "ms_per_scored_batch": per_batch,
+               "card": CARD}
+    log(json.dumps({"metrics_tail": summary}))
+    return summary
+
+
+def phase_main(dev: torch.device, root: Path, npz: Path) -> dict:
+    """The scoring CLI at the main path's configuration, writing its CSVs and
+    error maps under `root` (phase_ood reads them)."""
     from ddpm_ood_tpu_torch import reconstruct as cli
     from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
     from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
     from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        csvs = _write_dataset(root)
-        run = root / "output" / "smoke_fashionmnist"
-        run.mkdir(parents=True)
-        save_checkpoint(run / "checkpoint.pth", seeded_small_unet(0).state_dict())
-        argv = [f"--output_dir={root / 'output'}", "--model_name=smoke_fashionmnist",
-                f"--validation_ids={csvs['val']}", f"--in_ids={csvs['in']}",
-                f"--out_ids={csvs['checkerboard_test']}", "--device=cuda", *MAIN_ARGS]
-        log("main: python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
-        reset_launches()
-        t0 = time.perf_counter()
-        recon = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_launches()
+    csvs = _write_dataset(root)
+    run = root / "output" / SMOKE_MODEL
+    run.mkdir(parents=True)
+    save_checkpoint(run / "checkpoint.pth", seeded_small_unet(0).state_dict())
+    argv = [f"--output_dir={root / 'output'}", f"--model_name={SMOKE_MODEL}",
+            f"--validation_ids={csvs['val']}", f"--in_ids={csvs['in']}",
+            f"--out_ids={csvs['checkerboard_test']}", "--device=cuda", *MAIN_ARGS,
+            "--score_ssim=1", "--save_error_maps=1"]
+    log(f"main: LPIPS_WEIGHTS_NPZ={os.environ.get('LPIPS_WEIGHTS_NPZ')} "
+        "python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
+    reset_launches()
+    t0 = time.perf_counter()
+    recon = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
 
-        ts = pndm_timesteps(1000, 100)
-        t_starts = pndm_start_points(ts, 4)
-        per_batch = sum(len(s) for s, _ in group_t_starts(ts, t_starts, 16))
-        expected = per_batch * 3  # val, in, out: one batch of 32 each
-        evals = sum(p.model_evals for p in recon._programs.values())
-        log(f"main: {evals} UNet forwards (expected {expected}); launches {launches}")
-        if evals != expected:
-            raise PhaseError(f"sweep made {evals} UNet forwards, expected {expected}")
-        if launches["groupnorm_act"] != GN_PER_FORWARD * evals:
-            raise PhaseError(f"groupnorm launches {launches['groupnorm_act']} != "
-                             f"{GN_PER_FORWARD} x {evals}")
-        if launches["groupnorm_act_cluster"] != launches["groupnorm_act"]:
-            raise PhaseError(f"scoring ran {launches['groupnorm_act_cluster']} of "
-                             f"{launches['groupnorm_act']} GroupNorms on the cluster kernel")
-        if launches["flash_attention_fwd"] != ATTN_PER_FORWARD * evals:
-            raise PhaseError(f"attention launches {launches['flash_attention_fwd']} != "
-                             f"{ATTN_PER_FORWARD} x {evals}")
-        if launches["flash_attention_fwd_tc"] != launches["flash_attention_fwd"]:
-            raise PhaseError(f"bf16 scoring ran {launches['flash_attention_fwd_tc']} of "
-                             f"{launches['flash_attention_fwd']} flash forwards on tensor cores")
-        if any(launches[name] for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-                                           "flash_attention_bwd_dkv_tc",
-                                           "flash_attention_bwd_dq_tc")):
-            raise PhaseError(f"scoring launched a backward kernel: {launches}")
-        for name in ("val", "in", "checkerboard"):
-            _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
+    ts = pndm_timesteps(1000, 100)
+    t_starts = pndm_start_points(ts, 4)
+    per_batch = sum(len(s) for s, _ in group_t_starts(ts, t_starts, 16))
+    expected = per_batch * 3  # val, in, out: one batch of 32 each
+    evals = sum(p.model_evals for p in recon._programs.values())
+    log(f"main: {evals} UNet forwards (expected {expected}); launches {launches}")
+    if evals != expected:
+        raise PhaseError(f"sweep made {evals} UNet forwards, expected {expected}")
+    # LPIPS, SSIM and the error maps launch none of the kernels: the counts
+    # stay at 27 and 4 per UNet forward
+    if launches["groupnorm_act"] != GN_PER_FORWARD * evals:
+        raise PhaseError(f"groupnorm launches {launches['groupnorm_act']} != "
+                         f"{GN_PER_FORWARD} x {evals}")
+    if launches["groupnorm_act_cluster"] != launches["groupnorm_act"]:
+        raise PhaseError(f"scoring ran {launches['groupnorm_act_cluster']} of "
+                         f"{launches['groupnorm_act']} GroupNorms on the cluster kernel")
+    if launches["flash_attention_fwd"] != ATTN_PER_FORWARD * evals:
+        raise PhaseError(f"attention launches {launches['flash_attention_fwd']} != "
+                         f"{ATTN_PER_FORWARD} x {evals}")
+    if launches["flash_attention_fwd_tc"] != launches["flash_attention_fwd"]:
+        raise PhaseError(f"bf16 scoring ran {launches['flash_attention_fwd_tc']} of "
+                         f"{launches['flash_attention_fwd']} flash forwards on tensor cores")
+    if any(launches[name] for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                                       "flash_attention_bwd_dkv_tc",
+                                       "flash_attention_bwd_dq_tc")):
+        raise PhaseError(f"scoring launched a backward kernel: {launches}")
+    # LPIPS read the npz, not the seeded fallback, and ran on the card
+    want = _npz_state_dict(npz)
+    got = recon.perceptual.lpips.state_dict()
+    if any(got[k].device != dev or not torch.equal(got[k].cpu(), v) for k, v in want.items()):
+        raise PhaseError("the scoring CLI's LPIPS weights are not the npz's, or not on the card")
+    for name in ("val", "in", "checkerboard"):
+        _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
+        maps = sorted((recon.out_dir / "error_maps" / name).glob("*.npy"))
+        arrays = [np.load(m) for m in maps]
+        if len(maps) != N_IMAGES or any(a.shape != (32, 32, 1) or not np.isfinite(a).all()
+                                        for a in arrays):
+            raise PhaseError(f"error_maps/{name}: {len(maps)} maps, expected {N_IMAGES} finite "
+                             "(32, 32, 1) ones")
+        log(f"  error_maps/{name}: {len(maps)} finite (32, 32, 1) maps, mean "
+            f"{float(np.mean(arrays)):.4e}")
 
     n_all = sum(n for n, _ in recon.batch_times)
     s_all = sum(s for _, s in recon.batch_times)
@@ -477,6 +628,30 @@ def phase_main(dev: torch.device) -> dict:
         f"CLI wall {wall:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def phase_ood(root: Path) -> dict:
+    """The port's OOD analytics (numpy only) on the main phase's CSVs, for
+    each plot target: every AUROC finite in [0, 1], its score table written."""
+    from ddpm_ood_tpu_torch.ood import run_ood_detection
+
+    out = {}
+    for target in OOD_TARGETS:
+        log(f"ood: run_ood_detection({SMOKE_MODEL}, plot_target={target}, "
+            "out_datasets=['checkerboard'], report=auroc,aupr,fpr95,auroc_ci)")
+        res = run_ood_detection(str(root / "output"), SMOKE_MODEL, plot_target=target,
+                                out_datasets=["checkerboard"],
+                                report="auroc,aupr,fpr95,auroc_ci")
+        auc = res[f"Zscore_{target}"]
+        table = root / "output" / SMOKE_MODEL / "ood" / f"ood_scores_{target}.csv"
+        if len(auc) != 1 or not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in auc):
+            raise PhaseError(f"ood: plot_target={target} gave AUROCs {auc}")
+        if not table.is_file():
+            raise PhaseError(f"ood: no {table.name}")
+        out[target] = {k: v[0] for k, v in res.items() if k != "ood_data"}
+    log(json.dumps({"ood": out}))
+    return out
+
 
 # the training path: small UNet at full width, 32x32x1, batch 128, 2 epochs
 TRAIN_BATCH, TRAIN_STEPS_PER_EPOCH = 128, 4
@@ -684,8 +859,14 @@ def main() -> int:
         summary = phase_kernels(dev)
         phase_forward(dev)
         phase_train_step(dev)
-        score = phase_main(dev)
-        train = phase_train(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            npz = _write_lpips_npz(root / "lpips.npz")
+            os.environ["LPIPS_WEIGHTS_NPZ"] = str(npz)  # both scoring CLI runs read it
+            phase_metrics(dev, npz)
+            score = phase_main(dev, root, npz)
+            phase_ood(root)
+            train = phase_train(dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -2,8 +2,9 @@
 
 It imports ``torch`` and never JAX, nor anything of the JAX package. Its
 layout mirrors the JAX package, which stays the reference the port is tested
-against. It serves OOD scoring (``python -m ddpm_ood_tpu_torch.reconstruct``)
-and 2D DDPM training (``python -m ddpm_ood_tpu_torch.train_ddpm``).
+against. It serves OOD scoring (``python -m ddpm_ood_tpu_torch.reconstruct``),
+its AUROCs (``python -m ddpm_ood_tpu_torch.ood_detection``) and 2D DDPM
+training (``python -m ddpm_ood_tpu_torch.train_ddpm``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Argparse surfaces of the port's CLIs: the same flags and defaults as the
-JAX package's ``train_ddpm.py`` and ``reconstruct.py``, so launch scripts work
-unchanged. A copy of ``ddpm_ood_tpu/config.py``'s ``parse_args_train_ddpm``
-and ``parse_args_reconstruct``: the port imports nothing of the JAX package.
+JAX package's ``train_ddpm.py``, ``reconstruct.py`` and ``ood_detection.py``,
+so launch scripts work unchanged. A copy of ``ddpm_ood_tpu/config.py``'s
+``parse_args_train_ddpm``, ``parse_args_reconstruct`` and
+``parse_args_ood_detection``: the port imports nothing of the JAX package.
 Tuple-ish flags are parsed with ast.literal_eval like the reference.
 
 Flags a slice of the port does not serve are still parsed here; the CLI that
@@ -306,3 +307,43 @@ def parse_args_reconstruct(argv=None) -> argparse.Namespace:
         args.ddpm_checkpoint_epoch = args.eval_checkpoint
     return args
 
+
+def parse_args_ood_detection(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Compute Z-score AUROCs from reconstruction result CSVs."
+    )
+    parser.add_argument("--seed", type=int, default=2, help="Random seed to use.")
+    parser.add_argument("--output_dir", help="Location of model outputs.")
+    parser.add_argument(
+        "--model_name", help="Name of model (or comma-separated list of models)."
+    )
+    parser.add_argument(
+        "--max_t", type=int, default=1000,
+        help="Only use reconstructions starting from t < max_t.",
+    )
+    parser.add_argument(
+        "--min_t", type=int, default=0,
+        help="Only use reconstructions starting from t > min_t.",
+    )
+    parser.add_argument(
+        "--t_skip", type=int, default=1,
+        help="Only use every n reconstructions (accepted for parity; the reference "
+        "also never applies it, ood_detection.py:34,58).",
+    )
+    parser.add_argument(
+        "--plot_target", default="mse",
+        choices=("mse", "perceptual_difference", "mse+perceptual", "elbo",
+                 "mse+elbo", "ssim_distance", "mse+ssim"),
+        help="Z-score target for the AUROC (framework extension; the reference "
+        "hardcodes 'mse', ood_detection.py:73). 'elbo' targets require result "
+        "CSVs produced with reconstruct.py --score_elbo=1; 'ssim' targets "
+        "require --score_ssim=1.",
+    )
+    parser.add_argument(
+        "--report", default="auroc",
+        help="Comma-separated metrics to report per OOD dataset (framework "
+        "extension; the reference prints AUROC only): auroc, aupr (average "
+        "precision, OOD positive), fpr95 (FPR at 95%% TPR), auroc_ci "
+        "(DeLong 95%% confidence interval on the AUROC).",
+    )
+    return parser.parse_args(argv)

@@ -1,4 +1,5 @@
-"""Operators with hand-written CUDA kernels, each beside its plain PyTorch version."""
+"""Operators with hand-written CUDA kernels, each beside its plain PyTorch version,
+and SSIM (``ssim.py``), which the JAX package also computes outside any kernel."""
 
 from ._kernels import KernelBuildError, KernelLaunchError
 from .attention import (

@@ -12,6 +12,10 @@ the host.
 Public edges keep the JAX layout, images and noise as (B, *spatial, C) and
 (K, B, *spatial, C); the UNet itself takes (N, C, *spatial) in channels_last,
 which is a free permute of the same memory.
+
+``metrics_tail`` is the port of the JAX program's ``_score_body`` for 2D
+pixel-space models: per-(lane, image) MSE, LPIPS, optionally 1 - SSIM and
+the lane-sum of squared residuals (the error maps), all in fp32.
 """
 
 from __future__ import annotations
@@ -25,9 +29,13 @@ import torch
 
 from ..diffusion.plms import plms_init_state, plms_step, pndm_start_points, pndm_timesteps
 from ..diffusion.schedules import NoiseSchedule, add_noise
+from ..ops.ssim import ssim_distance
 
 # model_fn(x (N, C, *spatial), t (N,) int) -> fp32 (N, C, *spatial)
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# perceptual_fn(images (B, *spatial, C), recon (K, B, *spatial, C)) -> (K, B),
+# each lane scored against the images (losses.lpips.PerceptualLoss)
+PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _lane_major_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -86,14 +94,51 @@ def group_t_starts(timesteps_desc: np.ndarray, t_starts: np.ndarray,
     return out
 
 
+def metrics_tail(images: torch.Tensor, recon: torch.Tensor, b_scale: float = 1.0,
+                 perceptual_fn: Optional[PerceptualFn] = None, score_ssim: bool = False,
+                 score_error_maps: bool = False):
+    """Scores of one lane group's reconstructions, in fp32 with autocast off
+    (the JAX package computes them in fp32): /b_scale and clamp to [0, 1],
+    then per-(lane, image) MSE, LPIPS (``losses.lpips.PerceptualLoss``, which
+    pads inputs under 32x32; zeros without a perceptual function, the JAX
+    program's own convention), 1 - SSIM when `score_ssim`, and the lane-sum
+    of squared residuals (B, *spatial, C) when `score_error_maps`.
+
+    images (B, *spatial, C) and recon (K, B, *spatial, C) -> (mse (K, B),
+    perc (K, B), preview, ssim (K, B) or None, error sum or None); the
+    preview is the highest-start lane's reconstructions of up to 8 images."""
+    with torch.autocast(images.device.type, enabled=False):
+        images = images.float()
+        recon = torch.clamp(recon.float() / b_scale, 0.0, 1.0)
+        diff = torch.square(images[None] - recon)
+        mse = diff.mean(dim=tuple(range(2, diff.dim())))  # (K, B)
+        if perceptual_fn is not None:
+            perc = perceptual_fn(images, recon)
+            if perc.shape != mse.shape:
+                raise ValueError(f"perceptual_fn must return per-image scores per lane "
+                                 f"{tuple(mse.shape)}; got {tuple(perc.shape)}")
+        else:
+            perc = torch.zeros_like(mse)
+        ssim_d = None
+        if score_ssim:
+            ssim_d = ssim_distance(images.expand_as(recon).flatten(0, 1),
+                                   recon.flatten(0, 1)).view(mse.shape)
+        err_sum = diff.sum(dim=0) if score_error_maps else None
+        preview = recon[-1, : min(8, recon.shape[1])]
+    return mse, perc, preview, ssim_d, err_sum
+
+
 @dataclasses.dataclass
 class ReconProgram:
     """Scoring program: noise -> PLMS sweep per lane group -> metrics.
 
     ``__call__(images, generator)`` maps one batch (B, *spatial, C) in [0, 1]
-    to (t_starts (K,), mse (K, B), perceptual (K, B)); the highest-start
-    lane's reconstructions of up to 8 images are kept on ``last_preview``.
-    ``model_evals`` counts the UNet forwards made."""
+    to (t_starts (K,), mse (K, B), perceptual (K, B)), plus ssim_distance
+    (K, B) when ``score_ssim`` is set; the highest-start lane's
+    reconstructions of up to 8 images are kept on ``last_preview``, and with
+    ``score_error_maps`` the per-pixel squared error averaged over all K
+    start points, (B, *spatial, C), on ``last_error_maps``. ``model_evals``
+    counts the UNet forwards made."""
 
     sched: NoiseSchedule
     model_fn: ModelFn
@@ -109,6 +154,9 @@ class ReconProgram:
     # host_noise_fn((K, B, *latent), t_starts) -> np.ndarray replaces the
     # generator's Gaussian draw; tests use it to feed both packages one draw
     host_noise_fn: Optional[Callable] = None
+    perceptual_fn: Optional[PerceptualFn] = None
+    score_ssim: bool = False
+    score_error_maps: bool = False
 
     def __post_init__(self):
         self.timesteps_desc = pndm_timesteps(self.sched.num_train_timesteps,
@@ -120,6 +168,7 @@ class ReconProgram:
         ]
         self.model_evals = 0
         self.last_preview = None
+        self.last_error_maps = None
 
     def _model(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         self.model_evals += 1
@@ -133,22 +182,12 @@ class ReconProgram:
             return torch.from_numpy(arr).to(self.device)
         return torch.randn(shape, generator=generator, device=self.device)
 
-    def _score(self, images: torch.Tensor, recon: torch.Tensor):
-        """/b_scale, clamp to [0, 1], per-(lane, image) MSE, preview. LPIPS is
-        not ported: the perceptual scores are zeros, the JAX program's own
-        output when it has no perceptual function."""
-        recon = torch.clamp(recon / self.b_scale, 0.0, 1.0)
-        diff = torch.square(images[None] - recon)
-        mse = diff.mean(dim=tuple(range(2, diff.dim())))  # (K, B)
-        preview = recon[-1, : min(8, recon.shape[1])]
-        return mse, torch.zeros_like(mse), preview
-
     def __call__(self, images, generator: Optional[torch.Generator] = None):
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         noise_full = self._noise((len(self.t_starts),) + tuple(images.shape), generator)
         autocast = (torch.autocast(self.device.type, dtype=self.autocast_dtype)
                     if self.autocast_dtype is not None else contextlib.nullcontext())
-        mses, percs, offset = [], [], 0
+        mses, percs, ssims, err_sum, offset = [], [], [], None, 0
         with torch.no_grad(), autocast:
             for ts_desc, t_starts in self._groups:
                 k = t_starts.shape[0]
@@ -156,8 +195,16 @@ class ReconProgram:
                                    noise_full[offset: offset + k], ts_desc, t_starts,
                                    self.num_inference_steps, self.b_scale)
                 offset += k
-                mse, perc, preview = self._score(images, recon)
+                mse, perc, preview, ssim_d, err = metrics_tail(
+                    images, recon, self.b_scale, self.perceptual_fn, self.score_ssim,
+                    self.score_error_maps)
                 mses.append(mse)
                 percs.append(perc)
+                ssims.append(ssim_d)
+                if err is not None:  # lane sums, so the mean over groups is exact
+                    err_sum = err if err_sum is None else err_sum + err
         self.last_preview = preview  # from the highest-start group
-        return self.t_starts, torch.cat(mses), torch.cat(percs)
+        if err_sum is not None:
+            self.last_error_maps = err_sum / float(len(self.t_starts))
+        out = (self.t_starts, torch.cat(mses), torch.cat(percs))
+        return out + (torch.cat(ssims),) if self.score_ssim else out

@@ -1,14 +1,17 @@
 """Reconstruction pipeline: the OOD scoring workload on one device.
 
 Port of ``ddpm_ood_tpu/trainers/reconstruct.py`` for the slice the port
-serves: 2D pixel-space models, the batched PLMS sweep, MSE scoring. It needs
-a checkpoint (found before the model is built), sweeps every start timestep
-of every image, and writes per-(image, t_start) rows
-{filename, type, t, perceptual_difference, mse} to
+serves: 2D pixel-space models and the batched PLMS sweep. It needs a
+checkpoint (found before the model is built), sweeps every start timestep of
+every image, and writes per-(image, t_start) rows
+{filename, type, t, perceptual_difference, mse[, ssim_distance]} to
 ``ood/results_{val,in,<name>[_vflip|_hflip]}.csv`` in the JAX package's
-format (a leading index column), which ``ood_detection.py`` reads unchanged.
-LPIPS is not ported: ``perceptual_difference`` is 0.0, the JAX program's
-own convention when it has no perceptual function.
+format (a leading index column), which both packages' ``ood_detection`` read.
+``perceptual_difference`` is LPIPS (``losses/lpips.py``, weights from
+``LPIPS_WEIGHTS_NPZ``); ``--score_ssim`` adds ``ssim_distance`` and
+``--save_error_maps`` writes ``ood/error_maps/<dataset>/<stem>.npy``. The
+JAX package also renders each map to a ``.png`` with matplotlib, which the
+port does not use, so it writes the ``.npy`` files only.
 
 ``resolve_recon_groups`` stands in for the JAX package's
 ``serve.py`` helper of the same name.
@@ -28,6 +31,7 @@ import torch
 
 from ..data.loader import DataLoader
 from ..data.transforms import TransformChain
+from ..losses.lpips import PerceptualLoss
 from ..recon.sweep import ReconProgram
 from ..utils.checkpoint import find_checkpoint, missing_checkpoint_error
 from .base import BaseTrainer, refuse_flags
@@ -35,6 +39,7 @@ from .base import BaseTrainer, refuse_flags
 log = logging.getLogger(__name__)
 
 COLUMNS = ("filename", "type", "t", "perceptual_difference", "mse")
+SSIM_COLUMN = "ssim_distance"  # after COLUMNS, with --score_ssim
 NOISE_SEED = 777  # the JAX pipeline's PRNGKey(777 + process_index), one process
 
 
@@ -46,8 +51,6 @@ def refuse_unported_flags(args) -> None:
     refuse_flags(args, [
         ("--sampler", flag("sampler", "plms") != "plms", "only plms is ported"),
         ("--score_elbo", bool(flag("score_elbo", 0)), ""),
-        ("--score_ssim", bool(flag("score_ssim", 0)), ""),
-        ("--save_error_maps", bool(flag("save_error_maps", 0)), ""),
         ("--simplex_noise", bool(flag("simplex_noise", 0)), "Gaussian noise only"),
         ("--quantize", flag("quantize", "none") not in (None, "none"), ""),
         ("--aot_cache", bool(flag("aot_cache")), "a TPU-only feature"),
@@ -77,8 +80,8 @@ class _CsvSink:
     ``results_{name}.csv`` in the JAX package's format and removes the
     partial."""
 
-    def __init__(self, out_dir: Path, name: str):
-        self.out_dir, self.name = Path(out_dir), name
+    def __init__(self, out_dir: Path, name: str, columns=COLUMNS):
+        self.out_dir, self.name, self.columns = Path(out_dir), name, tuple(columns)
         self.partial = self.out_dir / f".results_{name}.partial.csv"
         self.rows: List[dict] = []
         self.partial.unlink(missing_ok=True)  # stale, from an interrupted run
@@ -91,8 +94,8 @@ class _CsvSink:
         if self._fh is None:
             self._fh = open(self.partial, "w", newline="")
             self._writer = csv.writer(self._fh, lineterminator="\n")
-            self._writer.writerow(COLUMNS)
-        self._writer.writerows([r[c] for c in COLUMNS] for r in rows)
+            self._writer.writerow(self.columns)
+        self._writer.writerows([r[c] for c in self.columns] for r in rows)
         self._fh.flush()
         os.fsync(self._fh.fileno())
 
@@ -104,8 +107,9 @@ class _CsvSink:
         tmp = final.with_name(f".{final.name}.tmp")
         with open(tmp, "w", newline="") as fh:
             w = csv.writer(fh, lineterminator="\n")
-            w.writerow(("",) + COLUMNS)  # pandas' unnamed index column
-            w.writerows((i,) + tuple(r[c] for c in COLUMNS) for i, r in enumerate(self.rows))
+            w.writerow(("",) + self.columns)  # pandas' unnamed index column
+            w.writerows((i,) + tuple(r[c] for c in self.columns)
+                        for i, r in enumerate(self.rows))
         os.replace(tmp, final)
         self.partial.unlink(missing_ok=True)
         return final
@@ -128,8 +132,14 @@ class Reconstruct(BaseTrainer):
         self._programs = {}
         # (recons, seconds) per scored batch, every get_scores call
         self.batch_times: List[tuple] = []
-        log.info("LPIPS is not ported: perceptual_difference is written as 0.0; "
-                 "score with ood_detection.py's default --plot_target=mse")
+        self.score_ssim = bool(getattr(args, "score_ssim", 0))
+        self.save_error_maps = bool(getattr(args, "save_error_maps", 0))
+        self.columns = COLUMNS + ((SSIM_COLUMN,) if self.score_ssim else ())
+        # LPIPS in fp32 on the scoring device, shared by every program
+        self.perceptual = PerceptualLoss().to(device).eval()
+        if self.save_error_maps:
+            log.info("--save_error_maps: writing each map as .npy; the port draws no .png "
+                     "(matplotlib is not a dependency of the port)")
 
     def _make_loader(self, ids, first_n, add_vflip=False, add_hflip=False) -> DataLoader:
         a = self.args
@@ -150,12 +160,16 @@ class Reconstruct(BaseTrainer):
                 num_inference_steps=int(a.num_inference_steps),
                 inference_skip_factor=int(skip_factor), b_scale=self.b_scale,
                 num_groups=resolve_recon_groups(getattr(a, "recon_groups", "auto")),
-                autocast_dtype=self.autocast_dtype,
+                autocast_dtype=self.autocast_dtype, perceptual_fn=self.perceptual,
+                score_ssim=self.score_ssim, score_error_maps=self.save_error_maps,
             )
         return self._programs[skip_factor]
 
     def get_scores(self, loader, dataset_name: str, inference_skip_factor: int,
+                   save_name: Optional[str] = None,
                    sink: Optional[_CsvSink] = None) -> List[dict]:
+        """`save_name` names the error-map directory (several datasets share
+        dataset_name "out"); defaults to dataset_name."""
         log.info(dataset_name)
         program = self._program(inference_skip_factor)
         generator = torch.Generator(device=self.device).manual_seed(NOISE_SEED)
@@ -163,13 +177,19 @@ class Reconstruct(BaseTrainer):
         for batch in loader:
             t1 = time.perf_counter()
             images = np.moveaxis(batch["image"], 1, -1)  # (B, *spatial, C)
-            t_starts, mse, perc = program(images, generator)
-            mse, perc = mse.cpu().numpy(), perc.cpu().numpy()  # waits for the device
-            rows = [
-                {"filename": _stem(f), "type": dataset_name, "t": int(t),
-                 "perceptual_difference": float(perc[k, b]), "mse": float(mse[k, b])}
-                for k, t in enumerate(t_starts) for b, f in enumerate(batch["filename"])
-            ]
+            t_starts, *scores = program(images, generator)
+            mse, perc, *ssim_d = (s.cpu().numpy() for s in scores)  # waits for the device
+            rows = []
+            for k, t in enumerate(t_starts):
+                for b, f in enumerate(batch["filename"]):
+                    row = {"filename": _stem(f), "type": dataset_name, "t": int(t),
+                           "perceptual_difference": float(perc[k, b]), "mse": float(mse[k, b])}
+                    if ssim_d:
+                        row[SSIM_COLUMN] = float(ssim_d[0][k, b])
+                    rows.append(row)
+            if self.save_error_maps:
+                self._save_error_maps(program.last_error_maps.cpu().numpy(), batch["filename"],
+                                      save_name or dataset_name)
             results.extend(rows)
             if sink is not None:
                 sink.append(rows)
@@ -180,9 +200,18 @@ class Reconstruct(BaseTrainer):
                      f"({n / secs:.1f} recons/s)")
         return results
 
-    def _run_scored(self, loader, dataset_name: str, csv_name: str) -> None:
-        sink = _CsvSink(self.out_dir, csv_name)
-        self.get_scores(loader, dataset_name, self.args.inference_skip_factor, sink=sink)
+    def _save_error_maps(self, maps: np.ndarray, filenames, name: str) -> None:
+        """One ``<stem>.npy`` per image under ood/error_maps/<name>/: the
+        per-pixel squared reconstruction error, mean over every start point,
+        channels last."""
+        out = self.out_dir / "error_maps" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for m, filename in zip(maps, filenames):
+            np.save(out / f"{_stem(filename)}.npy", m)
+
+    def _run_scored(self, loader, dataset_name: str, csv_name: str, **kw) -> None:
+        sink = _CsvSink(self.out_dir, csv_name, self.columns)
+        self.get_scores(loader, dataset_name, self.args.inference_skip_factor, sink=sink, **kw)
         sink.finalize()
 
     def reconstruct(self, args) -> None:
@@ -205,4 +234,4 @@ class Reconstruct(BaseTrainer):
                 else:
                     dataset_name = Path(out).stem.split("_")[0]
                 self._run_scored(self._make_loader(out, args.first_n, **flip_kw),
-                                 "out", dataset_name)
+                                 "out", dataset_name, save_name=dataset_name)

@@ -1,4 +1,4 @@
-"""Convert the JAX package's UNet params into the port's state_dict.
+"""Convert the JAX package's UNet and LPIPS params into the port's state_dicts.
 
 A port of the flax -> torch direction of
 ``ddpm_ood_tpu/utils/convert_torch.py`` (``flax_to_torch_unet``,
@@ -10,7 +10,8 @@ Input: the UNet params as a nested mapping of arrays (``{"conv_in":
 for example an Orbax checkpoint's ``model_state_dict`` restored and turned
 into numpy on a host with JAX. Output: a flat {key: fp32 tensor} dict with
 monai-generative names, which ``DiffusionModelUNet.load_state_dict`` takes
-with ``strict=True``.
+with ``strict=True``. ``jax_lpips_params_to_state_dict`` does the same for
+the LPIPS params that the JAX package's ``save_lpips_npz`` writes.
 """
 
 from __future__ import annotations
@@ -102,3 +103,23 @@ def jax_unet_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.ascontiguousarray(_to_torch(value, kind), dtype=np.float32)
             out[key] = torch.from_numpy(arr)
     return out
+
+
+_LPIPS_CONVS = ("conv0", "conv3", "conv6", "conv8", "conv10")
+
+
+def jax_lpips_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS params (``{"params": {"net": {"conv0": {"kernel",
+    "bias"}, ...}, "lin0": (C, 1), ...}}``, or the inner ``"params"`` tree) ->
+    the state_dict of the port's ``losses.lpips.LPIPS``: conv kernels HWIO ->
+    OIHW, ``lin`` (C, 1) -> (1, C, 1, 1)."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for name in _LPIPS_CONVS:
+        conv = p["net"][name]
+        out[f"net.{name}.weight"] = _to_torch(conv["kernel"], "conv")
+        out[f"net.{name}.bias"] = np.asarray(conv["bias"])
+    for i in range(len(_LPIPS_CONVS)):
+        w = np.asarray(p[f"lin{i}"])
+        out[f"lin{i}.weight"] = w.reshape(1, w.shape[0], 1, 1)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}

@@ -1,11 +1,13 @@
 """The port runs where JAX does not exist.
 
 In a fresh interpreter whose import system refuses jax, flax, orbax, optax,
-pandas and matplotlib (as on the GPU host, which has none of them) and the
-JAX package itself (the port keeps its own copies of what it needs), every
-module of ddpm_ood_tpu_torch imports, the tiny scoring and training CLIs run
-on the CPU without launching a kernel, and building the CUDA kernels where
-there is no nvcc raises KernelBuildError instead of returning.
+pandas, sklearn and matplotlib (as on the GPU host, which has none of them)
+and the JAX package itself (the port keeps its own copies of what it needs),
+every module of ddpm_ood_tpu_torch imports, the tiny scoring CLI (with LPIPS
+from an npz, --score_ssim and --save_error_maps) and training CLI run on the
+CPU without launching a kernel, ``python -m ddpm_ood_tpu_torch.ood_detection``
+prints the AUROCs of the scoring CLI's CSVs, and building the CUDA kernels
+where there is no nvcc raises KernelBuildError instead of returning.
 """
 
 import json
@@ -14,15 +16,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-from test_torch_reconstruct import make_synthetic_run
+from test_torch_reconstruct import MODEL, OUT_NAMES, make_synthetic_run
 from test_torch_train_cli import train_argv
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "orbax", "optax", "pandas", "matplotlib", "tensorboardX",
-           "ddpm_ood_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "optax", "pandas", "sklearn", "matplotlib",
+           "tensorboardX", "ddpm_ood_tpu")
 
 CHILD = r"""
-import importlib, json, pkgutil, sys
+import contextlib, importlib, io, json, pkgutil, runpy, sys
 
 # None in sys.modules is how Python spells "not installed": import raises
 # ModuleNotFoundError and importlib.util.find_spec returns None (torch probes
@@ -46,6 +48,10 @@ from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
 
 recon = reconstruct.main(json.loads(sys.argv[2]))
 trainer = train_ddpm.main(json.loads(sys.argv[3]))
+sys.argv = ["ood_detection"] + json.loads(sys.argv[4])  # python -m ddpm_ood_tpu_torch.ood_detection
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    runpy.run_module("ddpm_ood_tpu_torch.ood_detection", run_name="__main__")
 build = "not run: nvcc present"
 if _kernels.find_nvcc() is None:
     try:
@@ -61,6 +67,10 @@ print(json.dumps({
     "trained": [trainer.global_step, trainer.step.backwards,
                 sorted(p.name for p in trainer.run_dir.glob("*.pth"))],
     "csvs": sorted(p.name for p in recon.out_dir.glob("results_*.csv")),
+    "ssim_header": (recon.out_dir / "results_val.csv").read_text().splitlines()[0],
+    "error_maps": sorted(str(p.relative_to(recon.out_dir)) for p in recon.out_dir.rglob("*.npy")),
+    "ood_detection": printed.getvalue().splitlines(),
+    "scores_csv": (recon.out_dir / "ood_scores_mse+perceptual.csv").is_file(),
     "build": build,
     "leaked": sorted(m for m, mod in sys.modules.items()
                      if mod is not None and m.split(".")[0] in BLOCKED),
@@ -72,10 +82,14 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     argv = make_synthetic_run(tmp_path / "score")
     train = train_argv(tmp_path / "train", "--n_epochs=1", "--eval_freq=100",
                        "--checkpoint_every=1")
+    ood = [f"--output_dir={tmp_path / 'score' / 'output'}", f"--model_name={MODEL}",
+           "--plot_target=mse+perceptual", "--report=auroc,aupr,fpr95,auroc_ci"]
     proc = subprocess.run(
-        [sys.executable, "-c", CHILD, ",".join(BLOCKED), json.dumps(argv), json.dumps(train)],
+        [sys.executable, "-c", CHILD, ",".join(BLOCKED), json.dumps(argv), json.dumps(train),
+         json.dumps(ood)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "OMP_NUM_THREADS": "1"},  # see test_torch_reconstruct.py
+        env={**os.environ, "OMP_NUM_THREADS": "1",  # see test_torch_reconstruct.py
+             "LPIPS_WEIGHTS_NPZ": str(tmp_path / "score" / "lpips.npz")},
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -86,4 +100,14 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert got["evals"] > 0 and got["launches"] == [0, 0, 0, 0]
     assert got["trained"] == [10, 3, ["checkpoint.pth", "checkpoint_1.pth"]]
     assert len(got["csvs"]) == 5
+    assert got["ssim_header"] == ",filename,type,t,perceptual_difference,mse,ssim_distance"
+    assert len(got["error_maps"]) == 5 * 4 and all(
+        p.startswith("error_maps/") for p in got["error_maps"])
+    aucs = [line for line in got["ood_detection"] if line.startswith("AUC for")]
+    assert [line.split(" vs ")[1].split(":")[0] for line in aucs] == OUT_NAMES
+    for line in aucs:  # "AUC for <model> vs <name>: 62.5 (95% CI [30.1, 94.9])"
+        auc = float(line.split(": ")[1].split()[0])
+        assert 0.0 <= auc <= 100.0 and "95% CI [" in line
+    assert any(line.startswith("Average AUC: ") for line in got["ood_detection"])
+    assert got["scores_csv"]
     assert got["build"].startswith("KernelBuildError: nvcc not found"), got["build"]

@@ -14,6 +14,10 @@ Tolerances:
   (test_torch_unet.py); a lane chains at most 11 of them through the PLMS
   recursion, and each MSE averages 256 squared errors of values in [0, 1].
   The preview (single clamped pixels, no averaging): atol 1e-4.
+- the metrics tail (LPIPS from one set of JAX params, 1 - SSIM, the error
+  maps) on the same program: LPIPS and SSIM atol 1e-5 (values ~0.05 and
+  ~0.5; the metrics of reconstructions that agree to ~1e-6), the error maps
+  (single pixels) atol 1e-4 like the preview.
 """
 
 import jax
@@ -170,5 +174,51 @@ def test_recon_program_mse_table_matches_jax():
         len(s) for s, _ in sweep.group_t_starts(prog.timesteps_desc, prog.t_starts, 2))
     np.testing.assert_allclose(mse.numpy(), np.asarray(jmse), rtol=1e-5, atol=0)
     np.testing.assert_array_equal(perc.numpy(), np.asarray(jperc))  # zeros on both sides
+    np.testing.assert_allclose(prog.last_preview.numpy(), np.asarray(jprog.last_preview),
+                               atol=1e-4, rtol=0)
+
+
+def test_recon_program_metrics_tail_matches_jax():
+    """The same program with LPIPS (one set of JAX params, 16x16 padded to
+    32), --score_ssim and --save_error_maps on both sides: every output of the
+    metrics tail, across 2 lane groups."""
+    from ddpm_ood_tpu.losses import lpips as jlpips
+    from ddpm_ood_tpu_torch.losses.lpips import PerceptualLoss
+    from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict
+
+    unet = jax_make_unet("tiny", 2, 1, 1)
+    params = seeded_jax_params(unet, seed=3)
+    lpips_params = jlpips.init_lpips_params(jax.random.PRNGKey(0), image_hw=32)
+    rng = np.random.default_rng(6)
+    images = rng.uniform(size=(2, 16, 16, 1)).astype(np.float32)
+
+    def host_noise(shape, t_starts):
+        return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+
+    common = dict(num_inference_steps=10, inference_skip_factor=3, num_groups=2,
+                  host_noise_fn=host_noise, score_ssim=True, score_error_maps=True)
+    jprog = jsweep.ReconProgram(
+        sched=jsched.make_schedule(*SCHED_ARGS),
+        model_fn=jax.tree_util.Partial(lambda p, x, t: unet.apply({"params": p}, x, t), params),
+        perceptual_fn=jlpips.PerceptualLoss(dimensions=2, params=lpips_params),
+        latent_sample_shape=(16, 16, 1), overlap_host_noise=False, **common)
+    jt, jmse, jperc, jssim = jprog(jnp.asarray(images), jax.random.PRNGKey(0))
+
+    model = make_unet("tiny", 2, 1, 1)
+    model.load_state_dict(jax_unet_params_to_state_dict(params), strict=True)
+    prog = sweep.ReconProgram(
+        sched=schedules.make_schedule(*SCHED_ARGS),
+        model_fn=model.to(memory_format=torch.channels_last).eval(),
+        perceptual_fn=PerceptualLoss(state_dict=jax_lpips_params_to_state_dict(lpips_params)),
+        **common)
+    t, mse, perc, ssim_d = prog(images)
+    np.testing.assert_array_equal(t, np.asarray(jt))
+    np.testing.assert_allclose(mse.numpy(), np.asarray(jmse), rtol=1e-5, atol=0)
+    assert (perc > 0).all() and (ssim_d > 0).all()
+    np.testing.assert_allclose(perc.numpy(), np.asarray(jperc), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(ssim_d.numpy(), np.asarray(jssim), atol=1e-5, rtol=0)
+    assert prog.last_error_maps.shape == (2, 16, 16, 1)
+    np.testing.assert_allclose(prog.last_error_maps.numpy(), np.asarray(jprog.last_error_maps),
+                               atol=1e-4, rtol=0)
     np.testing.assert_allclose(prog.last_preview.numpy(), np.asarray(jprog.last_preview),
                                atol=1e-4, rtol=0)

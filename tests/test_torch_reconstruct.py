@@ -1,10 +1,24 @@
-"""The port's scoring CLI on the CPU, end to end, and its refusals.
+"""The port's scoring CLI on the CPU, end to end, against the JAX CLI, and
+its refusals.
 
-``python -m ddpm_ood_tpu_torch.reconstruct --device=cpu`` on a synthetic
-16x16 set with a tiny-preset checkpoint writes the five results CSVs that
-the JAX pipeline writes; ``pd.read_csv`` reads them with the JAX column set,
-and ``ddpm_ood_tpu.ood.run_ood_detection`` scores them unchanged. Flags the
+``ddpm_ood_tpu_torch.reconstruct`` on a synthetic 16x16 set with a tiny-preset
+checkpoint, an LPIPS npz in the JAX package's key schema and
+``--score_ssim=1 --save_error_maps=1`` writes the five results CSVs and the
+error maps that the JAX pipeline writes. The JAX package's ``Reconstruct``
+scores the same images with the same weights (the checkpoint converted by
+its ``torch_to_flax_unet``), the same npz and the same noise draw (both
+programs take it from one host function), and the two agree column for
+column. ``pd.read_csv`` reads the port's CSVs with the JAX column set, and
+``ddpm_ood_tpu.ood.run_ood_detection`` scores them unchanged. Flags the
 slice does not serve raise NotImplementedError naming the flag.
+
+Tolerances, fp32 on both sides: t exact; mse rtol 1e-5 (the sweep's,
+tests/test_torch_plms_sweep.py); perceptual_difference atol 1e-6 on values
+~0.05 and ssim_distance atol 1e-6 on values ~0.5 (LPIPS and SSIM of
+reconstructions that agree to ~1e-6, tests/test_torch_lpips.py and
+test_torch_ssim.py); the error maps atol 1e-4 (single pixels, each a mean
+of 4 squared errors below 1: the preview's tolerance in
+tests/test_torch_plms_sweep.py; 4.0e-6 observed).
 """
 
 from pathlib import Path
@@ -17,12 +31,15 @@ import torch
 from ddpm_ood_tpu.ood import run_ood_detection
 from ddpm_ood_tpu_torch import reconstruct as cli
 from ddpm_ood_tpu_torch.data.csv_splits import write_split_csv
+from ddpm_ood_tpu_torch.losses.lpips import ALEX_CHANNELS, ALEX_CONVS
 from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
-from ddpm_ood_tpu_torch.trainers.reconstruct import COLUMNS, _CsvSink
+from ddpm_ood_tpu_torch.trainers.reconstruct import COLUMNS, SSIM_COLUMN, _CsvSink
 from ddpm_ood_tpu_torch.utils.checkpoint import find_checkpoint, save_checkpoint
 
 MODEL = "port_fashionmnist"
 OUT_NAMES = ["MNIST", "FashionMNIST_vflip", "FashionMNIST_hflip"]
+NAMES = ["val", "in"] + OUT_NAMES
+METRIC_ATOL, MAP_ATOL = 1e-6, 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,8 +71,35 @@ def _split(root: Path, name: str, n: int, ood: bool, rng) -> str:
     return str(root / f"{name}.csv")
 
 
+def write_lpips_npz(path: Path, seed: int = 0) -> Path:
+    """LPIPS weights in the key schema of the JAX package's save_lpips_npz
+    (HWIO kernels, (C, 1) lin weights, some of them negative), drawn with
+    numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for name, cin, cout, k, _, _ in ALEX_CONVS:
+        arrays[f"params/net/{name}/kernel"] = (
+            rng.standard_normal((k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
+        arrays[f"params/net/{name}/bias"] = (0.01 * rng.standard_normal(cout)).astype(np.float32)
+    for i, c in enumerate(ALEX_CHANNELS):
+        arrays[f"params/lin{i}"] = (rng.standard_normal((c, 1)) / np.sqrt(c)).astype(np.float32)
+    np.savez(path, **arrays)
+    return path
+
+
+def host_noise(shape, t_starts):
+    """One noise draw for every batch, handed to both packages' programs.
+    Each image's noise depends on its place in the batch only: the JAX
+    program wrap-pads a batch of 4 to the 8 virtual devices of the test
+    backend and reads back the first 4 columns."""
+    k, b = shape[:2]
+    full = np.random.default_rng(5).standard_normal((k, 8) + tuple(shape[2:]))
+    return full[:, :b].astype(np.float32)
+
+
 def make_synthetic_run(root: Path) -> list:
-    """Data splits plus a seeded tiny checkpoint.pth; returns the CLI argv."""
+    """Data splits, a seeded tiny checkpoint.pth and an LPIPS npz
+    (``root/lpips.npz``); returns the CLI argv."""
     rng = np.random.default_rng(0)
     val = _split(root, "val", 4, False, rng)
     ins = _split(root, "FashionMNIST_test", 4, False, rng)
@@ -64,6 +108,7 @@ def make_synthetic_run(root: Path) -> list:
     run.mkdir(parents=True)
     model = random_init_(make_unet("tiny", 2, 1, 1), torch.Generator().manual_seed(0))
     save_checkpoint(run / "checkpoint.pth", model.state_dict(), epoch=3)
+    write_lpips_npz(root / "lpips.npz")
     return [
         "--device=cpu", f"--output_dir={root / 'output'}", f"--model_name={MODEL}",
         f"--validation_ids={val}", f"--in_ids={ins}",
@@ -71,33 +116,99 @@ def make_synthetic_run(root: Path) -> list:
         "--image_size=16", "--model_type=tiny", "--is_grayscale=1", "--batch_size=4",
         "--beta_schedule=scaled_linear_beta", "--beta_start=0.0015", "--beta_end=0.0195",
         "--num_inference_steps=10", "--inference_skip_factor=3", "--num_workers=2",
+        "--recon_groups=2", "--score_ssim=1", "--save_error_maps=1",
     ]
+
+
+def _jax_reconstruct(root: Path, argv: list) -> Path:
+    """The JAX package's Reconstruct on the same data, weights, npz and noise;
+    returns its ood directory."""
+    import jax
+
+    from ddpm_ood_tpu.config import parse_args_reconstruct
+    from ddpm_ood_tpu.models.unet import make_unet as jax_make_unet
+    from ddpm_ood_tpu.train.ddpm import make_ddpm_state
+    from ddpm_ood_tpu.trainers.reconstruct import Reconstruct as JaxReconstruct
+    from ddpm_ood_tpu.utils import checkpoint as jckpt
+    from ddpm_ood_tpu.utils.convert_torch import torch_to_flax_unet
+
+    out = root / "jax_output"
+    state = make_ddpm_state(jax_make_unet("tiny", 2, 1, 1), jax.random.PRNGKey(0), (16, 16, 1))
+    weights = torch.load(root / "output" / MODEL / "checkpoint.pth", weights_only=True)
+    params, report = torch_to_flax_unet(weights["model_state_dict"], state.params)
+    assert not report["missing"] and not report["unused"], report
+    jckpt.save_checkpoint(out / MODEL, "checkpoint", {
+        "epoch": 3, "global_step": 0, "best_loss": 0.0, "model_state_dict": params,
+        "optimizer_state_dict": state.opt_state})
+    jckpt.wait_for_checkpoints()
+    args = parse_args_reconstruct([a.replace(str(root / "output"), str(out)) for a in argv
+                                   if a != "--device=cpu"])
+    recon = JaxReconstruct(args)
+    program = recon._program(args.inference_skip_factor)
+    program.host_noise_fn, program.overlap_host_noise = host_noise, False
+    recon.reconstruct(args)
+    return out / MODEL / "ood"
 
 
 @pytest.fixture(scope="module")
 def scored_run(tmp_path_factory):
+    """The port's scoring run and the JAX package's on the same inputs."""
     root = tmp_path_factory.mktemp("port_cli")
     argv = make_synthetic_run(root)
-    recon = cli.main(argv)
-    return root, argv, recon
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LPIPS_WEIGHTS_NPZ", str(root / "lpips.npz"))
+        args = cli.parse_args(argv)
+        recon = cli.Reconstruct(args, torch.device("cpu"))
+        recon._program(args.inference_skip_factor).host_noise_fn = host_noise
+        recon.reconstruct(args)
+        jax_ood = _jax_reconstruct(root, argv)
+    return root, argv, recon, jax_ood
+
+
+def _sorted_csv(path: Path) -> pd.DataFrame:
+    return pd.read_csv(path).sort_values(["filename", "t"]).reset_index(drop=True)
 
 
 def test_cli_writes_the_jax_results_csvs(scored_run):
-    root, _, recon = scored_run
+    root, _, recon, jax_ood = scored_run
     ood = root / "output" / MODEL / "ood"
     names = sorted(p.name for p in ood.glob("results_*.csv"))
-    assert names == sorted(f"results_{n}.csv" for n in ["val", "in"] + OUT_NAMES)
+    assert names == sorted(f"results_{n}.csv" for n in NAMES)
     assert not list(ood.glob(".*partial*"))
     for name in names:
         df = pd.read_csv(ood / name)
-        assert list(df.columns) == ["Unnamed: 0", *COLUMNS]  # the JAX files' layout
+        assert list(df.columns) == ["Unnamed: 0", *COLUMNS, SSIM_COLUMN]  # the JAX layout
         assert len(df) == 4 * 4 and df["filename"].nunique() == 4
         assert sorted(df["t"].unique()) == sorted(recon._program(3).t_starts)
-        assert np.isfinite(df["mse"]).all() and (df["perceptual_difference"] == 0.0).all()
+        assert np.isfinite(df[["mse", "perceptual_difference", SSIM_COLUMN]]).all().all()
+        assert (df["perceptual_difference"] > 0).all() and (df[SSIM_COLUMN] > 0).all()
+        want = _sorted_csv(jax_ood / name)
+        got = _sorted_csv(ood / name)
+        assert list(got.columns) == list(want.columns)
+        for col in ("filename", "type", "t"):
+            assert list(got[col]) == list(want[col]), (name, col)
+        np.testing.assert_allclose(got["mse"], want["mse"], rtol=1e-5, atol=0)
+        for col in ("perceptual_difference", SSIM_COLUMN):
+            np.testing.assert_allclose(got[col], want[col], atol=METRIC_ATOL, rtol=0,
+                                       err_msg=f"{name} {col}")
+
+
+def test_cli_writes_the_jax_error_maps(scored_run):
+    root, _, _, jax_ood = scored_run
+    maps = root / "output" / MODEL / "ood" / "error_maps"
+    assert sorted(p.name for p in maps.iterdir()) == sorted(NAMES)
+    for name in NAMES:
+        got = sorted(maps.glob(f"{name}/*"))
+        assert len(got) == 4 and all(p.suffix == ".npy" for p in got)  # no figures
+        for path in got:
+            m = np.load(path)
+            assert m.shape == (16, 16, 1) and np.isfinite(m).all() and m.max() > 0
+            np.testing.assert_allclose(m, np.load(jax_ood / "error_maps" / name / path.name),
+                                       atol=MAP_ATOL, rtol=0)
 
 
 def test_ood_detection_scores_the_port_csvs(scored_run):
-    root, _, _ = scored_run
+    root, _, _, _ = scored_run
     results = run_ood_detection(str(root / "output"), MODEL, plot_target="mse",
                                 save_plots=False, out_datasets=OUT_NAMES)
     aurocs = results["Zscore_mse"]
@@ -105,11 +216,27 @@ def test_ood_detection_scores_the_port_csvs(scored_run):
     assert len(aurocs) == 3 and all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aurocs)
 
 
+@pytest.mark.parametrize("target", ["perceptual_difference", "mse+perceptual", "ssim_distance"])
+def test_both_ood_detections_score_the_port_csvs_alike(scored_run, target):
+    """The targets that read LPIPS and SSIM give finite AUROCs, the same in
+    both packages' run_ood_detection (no more 0/0 z-scores)."""
+    from ddpm_ood_tpu_torch.ood import run_ood_detection as port_run_ood_detection
+
+    root, _, _, _ = scored_run
+    want = run_ood_detection(str(root / "output"), MODEL, plot_target=target,
+                             save_plots=False, out_datasets=OUT_NAMES)
+    got = port_run_ood_detection(str(root / "output"), MODEL, plot_target=target,
+                                 out_datasets=OUT_NAMES)
+    key = f"Zscore_{target}"
+    assert all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in got[key])
+    np.testing.assert_allclose(got[key], want[key], atol=1e-12, rtol=0)
+
+
 def test_kernels_not_launched_on_cpu(scored_run):
     from ddpm_ood_tpu_torch.ops.attention import flash_attention_fwd
     from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
 
-    _, _, recon = scored_run
+    _, _, recon, _ = scored_run
     assert sum(p.model_evals for p in recon._programs.values()) > 0
     assert groupnorm_act.launches == 0 and flash_attention_fwd.launches == 0
 
@@ -127,14 +254,20 @@ def test_csv_sink_output_equals_pandas_to_csv(tmp_path):
 
 REFUSED = [
     ("--sampler=ddim", "--sampler"), ("--sampler=plms_ref", "--sampler"),
-    ("--score_elbo=1", "--score_elbo"), ("--score_ssim=1", "--score_ssim"),
-    ("--save_error_maps=1", "--save_error_maps"), ("--simplex_noise=1", "--simplex_noise"),
+    ("--score_elbo=1", "--score_elbo"), ("--simplex_noise=1", "--simplex_noise"),
     ("--quantize=int8", "--quantize"), ("--aot_cache=/tmp/aot", "--aot_cache"),
     ("--profile_dir=prof", "--profile_dir"), ("--resume=1", "--resume"),
     ("--spatial_dimension=3", "--spatial_dimension"),
     ("--vqvae_checkpoint=vq/checkpoint.pth", "--vqvae_checkpoint"),
     ("--latent_pad=(0,0,1,1)", "--latent_pad"), ("--remat=1", "--remat"),
 ]
+
+
+@pytest.mark.parametrize("flag", ["--score_ssim=1", "--save_error_maps=1"])
+def test_metrics_tail_flags_are_served(flag):
+    from ddpm_ood_tpu_torch.trainers.reconstruct import refuse_unported_flags
+
+    refuse_unported_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
 
 
 @pytest.mark.parametrize("flag,name", REFUSED)
