@@ -42,7 +42,20 @@ Phases, each fatal on failure:
                  (numpy only) for the plot targets mse, perceptual_difference,
                  mse+perceptual and ssim_distance: AUROC, AUPR, FPR@95 and the
                  DeLong CI, each AUROC finite in [0, 1], ood_scores_*.csv written.
-  9. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
+  9. samplers -- DDIM, DPM-Solver++ and the carried-history PLMS
+                 (plms_ref), and the ELBO score: each sampler's fp32
+                 small-UNet ReconProgram on a 10-step grid with the noise
+                 passed in, its (K, B) MSE table and (but for plms_ref) its
+                 ELBO table, card against CPU; the quality gate's tiny UNet
+                 at 16x16 (forward, and one fp32 training step); then the
+                 scoring CLI at full width with --sampler=dpm
+                 --num_inference_steps=25 --inference_skip_factor=1
+                 --score_elbo=1 (finite mse, perceptual_difference and elbo
+                 in every row, recons/s and forwards per batch printed), and
+                 run_ood_detection for elbo and mse+elbo on its CSVs. Every
+                 path launches 27 GroupNorms and 4 flash forwards per UNet
+                 forward (in bf16 on the cluster and tensor-core kernels).
+ 10. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
@@ -51,9 +64,10 @@ Phases, each fatal on failure:
                  and dQ on tensor cores), and that the scoring CLI
                  loads the trained checkpoint.pth.
 
-Launch counts are set to 0 just before each of the two CLI runs and read just
-after. The line before the last is a JSON summary of the kernels; the last
-line is {"ok": true, "device": {...}}. The script imports no JAX.
+Launch counts are set to 0 just before each of the three CLI runs (scoring,
+the samplers' scoring, training) and read just after. The line before the
+last is a JSON summary of the kernels; the last line is {"ok": true,
+"device": {...}}. The script imports no JAX.
 """
 
 from __future__ import annotations
@@ -351,10 +365,10 @@ METRICS_TOL = 1e-4
 OOD_TARGETS = ("mse", "perceptual_difference", "mse+perceptual", "ssim_distance")
 
 
-def seeded_small_unet(seed: int):
+def seeded_unet(seed: int, preset: str = "small"):
     from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
 
-    return random_init_(make_unet("small", 2, 1, 1), torch.Generator().manual_seed(seed))
+    return random_init_(make_unet(preset, 2, 1, 1), torch.Generator().manual_seed(seed))
 
 
 def phase_forward(dev: torch.device) -> None:
@@ -362,8 +376,8 @@ def phase_forward(dev: torch.device) -> None:
     from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
     from ddpm_ood_tpu_torch.recon.sweep import ReconProgram
 
-    cpu = seeded_small_unet(1).to(memory_format=torch.channels_last).eval()
-    gpu = seeded_small_unet(1).to(dev, memory_format=torch.channels_last).eval()
+    cpu = seeded_unet(1).to(memory_format=torch.channels_last).eval()
+    gpu = seeded_unet(1).to(dev, memory_format=torch.channels_last).eval()
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((4, 1, 32, 32), dtype=np.float32))
     t = torch.tensor([0, 10, 500, 990])
@@ -422,27 +436,27 @@ def _write_dataset(root: Path) -> dict:
             for name, ood in (("val", False), ("in", False), ("checkerboard_test", True))}
 
 
-def _check_csv(path: Path, t_starts) -> None:
-    """Every image at every start point, and in every row a finite mse and
-    finite perceptual_difference and ssim_distance, which are not all zero."""
+def _check_csv(path: Path, t_starts, columns=SCORE_COLUMNS) -> None:
+    """Every image at every start point, and in every row a finite value of
+    each of `columns`; those after mse are not all zero."""
     if not path.is_file():
         raise PhaseError(f"missing results CSV {path.name}")
     with open(path, newline="") as fh:
         rows = list(csv.DictReader(fh))
     per_image = {}
     for r in rows:
-        values = [float(r.get(c) or "nan") for c in SCORE_COLUMNS]
+        values = [float(r.get(c) or "nan") for c in columns]
         if not all(map(math.isfinite, values)):
-            raise PhaseError(f"{path.name}: a score of {SCORE_COLUMNS} is missing or not "
+            raise PhaseError(f"{path.name}: a score of {columns} is missing or not "
                              f"finite in {r}")
         per_image.setdefault(r["filename"], []).append(int(r["t"]))
     if len(per_image) != N_IMAGES or any(sorted(v) != sorted(t_starts) for v in per_image.values()):
         raise PhaseError(f"{path.name}: expected {N_IMAGES} images x {len(t_starts)} start points, "
                          f"got {len(rows)} rows over {len(per_image)} images")
-    for c in SCORE_COLUMNS[1:]:
+    for c in columns[1:]:
         if not any(float(r[c]) for r in rows):
             raise PhaseError(f"{path.name}: {c} is 0 in every row")
-    log(f"  {path.name}: {len(rows)} rows, {len(t_starts)} per image, {', '.join(SCORE_COLUMNS)} "
+    log(f"  {path.name}: {len(rows)} rows, {len(t_starts)} per image, {', '.join(columns)} "
         "finite in every row")
 
 
@@ -513,7 +527,7 @@ def phase_metrics(dev: torch.device, npz: Path) -> dict:
 
     # device ms per scored batch: the tail once per lane group; the UNet once
     # per step of each group's grid, on k * 32 images under bf16 autocast
-    unet = seeded_small_unet(0).to(dev, memory_format=torch.channels_last).eval()
+    unet = seeded_unet(0).to(dev, memory_format=torch.channels_last).eval()
     img = torch.from_numpy(images).to(dev)
     per_batch = {"metrics_tail": 0.0, "lpips": 0.0, "ssim": 0.0, "unet_forwards": 0.0}
     fn = perceptual["card"]
@@ -562,7 +576,7 @@ def phase_main(dev: torch.device, root: Path, npz: Path) -> dict:
     csvs = _write_dataset(root)
     run = root / "output" / SMOKE_MODEL
     run.mkdir(parents=True)
-    save_checkpoint(run / "checkpoint.pth", seeded_small_unet(0).state_dict())
+    save_checkpoint(run / "checkpoint.pth", seeded_unet(0).state_dict())
     argv = [f"--output_dir={root / 'output'}", f"--model_name={SMOKE_MODEL}",
             f"--validation_ids={csvs['val']}", f"--in_ids={csvs['in']}",
             f"--out_ids={csvs['checkerboard_test']}", "--device=cuda", *MAIN_ARGS,
@@ -653,6 +667,153 @@ def phase_ood(root: Path) -> dict:
     return out
 
 
+# the samplers' scoring path: DPM-Solver++ on the 25-step grid, every start
+# point, with the likelihood column; the rest of MAIN_ARGS as the main path
+SAMPLER_ARGS = ["--sampler=dpm", "--num_inference_steps=25", "--inference_skip_factor=1",
+                "--score_elbo=1"]
+SAMPLER_COLUMNS = ("mse", "perceptual_difference", "elbo")
+# (sampler, with the ELBO table) held card against CPU on the fp32 small UNet
+SAMPLER_PROGRAMS = (("ddim", True), ("dpm", True), ("plms_ref", False), ("plms", True))
+
+
+def _check_launches(launches: dict, evals: int, what: str, bf16: bool) -> None:
+    """27 GroupNorms and 4 flash forwards per UNet forward and no backward;
+    in bf16 every GroupNorm on the cluster kernel and every flash forward on
+    tensor cores."""
+    want = {"groupnorm_act": GN_PER_FORWARD * evals,
+            "flash_attention_fwd": ATTN_PER_FORWARD * evals}
+    if bf16:
+        want.update(groupnorm_act_cluster=GN_PER_FORWARD * evals,
+                    flash_attention_fwd_tc=ATTN_PER_FORWARD * evals)
+    got = {k: launches[k] for k in want}
+    backward = {k: v for k, v in launches.items() if "bwd" in k and v}
+    if got != want or backward:
+        raise PhaseError(f"{what}: {evals} UNet forwards launched {launches}, expected {want} "
+                         "and no backward kernel")
+
+
+def phase_samplers(dev: torch.device, root: Path) -> dict:
+    """The other samplers and the ELBO score: each sampler's fp32 small-UNet
+    program (10-step grid, noise passed in) card against CPU, with the launch
+    counts per forward; the quality gate's tiny UNet at 16x16 (forward and an
+    fp32 training step); then the scoring CLI with DPM-Solver++ at full width
+    and the elbo AUROCs on its CSVs."""
+    from ddpm_ood_tpu_torch import reconstruct as cli
+    from ddpm_ood_tpu_torch.diffusion.ddim import ddim_timesteps
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.ood import run_ood_detection
+    from ddpm_ood_tpu_torch.recon.sweep import ReconProgram, group_t_starts
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    models = {"cpu": seeded_unet(1).to(memory_format=torch.channels_last).eval(),
+              "cuda": seeded_unet(1).to(dev, memory_format=torch.channels_last).eval()}
+    rng = np.random.default_rng(4)
+    images = rng.uniform(size=(2, 32, 32, 1)).astype(np.float32)
+
+    def host_noise(shape, t_starts):
+        return np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+
+    for sampler, elbo in SAMPLER_PROGRAMS:
+        tables = {}
+        for side, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            prog = ReconProgram(
+                sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195, device=device),
+                model_fn=models[side], device=device, num_inference_steps=10,
+                inference_skip_factor=3, num_groups=2, sampler=sampler, score_elbo=elbo,
+                host_noise_fn=host_noise)
+            reset_launches()
+            out = prog(images)
+            torch.cuda.synchronize()
+            if side == "cuda":
+                _check_launches(read_launches(), prog.model_evals, f"{sampler} program",
+                                bf16=False)
+            tables[side] = {"mse": out[1].cpu(), **({"elbo": out[3].cpu()} if elbo else {})}
+        errs = {name: ((tables["cuda"][name] - ref).abs() / ref.abs().clamp_min(1e-6)).max().item()
+                for name, ref in tables["cpu"].items()}
+        log(f"samplers: {sampler} (K, B) = {tuple(tables['cpu']['mse'].shape)}, "
+            f"{prog.model_evals} forwards, fp32 card vs CPU max_rel_err "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" tol={FWD_TOL:.0e}; {GN_PER_FORWARD} GroupNorm and {ATTN_PER_FORWARD} flash "
+            "launches per forward")
+        if not all(math.isfinite(e) and e <= FWD_TOL for e in errs.values()):
+            raise PhaseError(f"{sampler} program on the card disagrees with the CPU: {errs}")
+
+    # the quality gate's model: the tiny preset at 16x16, its GroupNorm shapes
+    # (C = 32, 64, 96, 128) and 16-token attention, forward and training step
+    tiny = {"cpu": seeded_unet(3, "tiny").to(memory_format=torch.channels_last).eval(),
+            "cuda": seeded_unet(3, "tiny").to(dev, memory_format=torch.channels_last).eval()}
+    x = torch.from_numpy(rng.standard_normal((8, 1, 16, 16), dtype=np.float32))
+    t = torch.tensor([0, 10, 40, 200, 500, 700, 960, 999])
+    with torch.no_grad():
+        ref = tiny["cpu"](x.to(memory_format=torch.channels_last), t)
+        reset_launches()
+        got = tiny["cuda"](x.to(dev, memory_format=torch.channels_last), t.to(dev)).cpu()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got16 = tiny["cuda"](x.to(dev, memory_format=torch.channels_last), t.to(dev)).cpu()
+        torch.cuda.synchronize()
+    _check_launches(read_launches(), 2, "tiny UNet forwards", bf16=False)
+    scale = max(1.0, ref.abs().max().item())
+    err, err16 = ((g - ref).abs().max().item() / scale for g in (got, got16))
+    log(f"samplers: tiny UNet 16x16 forward fp32 card vs CPU rel_err={err:.3e} "
+        f"tol={FWD_TOL:.0e}; bf16 autocast vs CPU fp32 rel_err={err16:.3e} (reported)")
+    if not (math.isfinite(err) and err <= FWD_TOL and math.isfinite(err16)):
+        raise PhaseError(f"tiny UNet forward on the card disagrees with the CPU: {err}")
+    phase_train_step(dev, "tiny", 16)
+
+    # the scoring CLI with DPM-Solver++ and the ELBO, at full width
+    out_root = root / "output_samplers"
+    (out_root / SMOKE_MODEL).mkdir(parents=True)
+    save_checkpoint(out_root / SMOKE_MODEL / "checkpoint.pth", seeded_unet(0).state_dict())
+    argv = [f"--output_dir={out_root}", f"--model_name={SMOKE_MODEL}",
+            f"--validation_ids={root / 'val.csv'}", f"--in_ids={root / 'in.csv'}",
+            f"--out_ids={root / 'checkerboard_test.csv'}", "--device=cuda", *MAIN_ARGS,
+            *SAMPLER_ARGS]
+    log("samplers: python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
+    reset_launches()
+    t1 = time.perf_counter()
+    recon = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_launches()
+    ts = ddim_timesteps(1000, 25)
+    t_starts = pndm_start_points(ts, 1)
+    groups = group_t_starts(ts, t_starts, 16)
+    per_batch = sum(len(s) for s, _ in groups) + len(groups)  # the sweep, then one ELBO call
+    evals = sum(p.model_evals for p in recon._programs.values())
+    log(f"samplers: {evals} UNet forwards ({per_batch} per batch of {N_IMAGES}: "
+        f"{per_batch - len(groups)} sweep + {len(groups)} ELBO, 3 batches); launches {launches}")
+    if evals != 3 * per_batch:
+        raise PhaseError(f"dpm sweep made {evals} UNet forwards, expected {3 * per_batch}")
+    _check_launches(launches, evals, "dpm scoring CLI", bf16=True)
+    for name in ("val", "in", "checkerboard"):
+        _check_csv(recon.out_dir / f"results_{name}.csv", t_starts, SAMPLER_COLUMNS)
+    n_warm = sum(n for n, _ in recon.batch_times[1:])
+    s_warm = sum(s for _, s in recon.batch_times[1:])
+    n_all = sum(n for n, _ in recon.batch_times)
+    s_all = sum(s for _, s in recon.batch_times)
+    log(f"samplers: batches (recons, s) = {[(n, round(s, 3)) for n, s in recon.batch_times]}")
+    log(f"samplers: dpm@25/1 + elbo {n_all / s_all:.2f} recons/s over all "
+        f"{len(recon.batch_times)} batches; {n_warm / s_warm:.2f} over batches 2-"
+        f"{len(recon.batch_times)}; {per_batch} model_evals per batch; CLI wall {wall:.1f} s; "
+        f"card {CARD}")
+    aucs = {}
+    for target in ("elbo", "mse+elbo"):
+        res = run_ood_detection(str(out_root), SMOKE_MODEL, plot_target=target,
+                                out_datasets=["checkerboard"], report="auroc,aupr,fpr95,auroc_ci")
+        auc = res[f"Zscore_{target}"]
+        if len(auc) != 1 or not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in auc):
+            raise PhaseError(f"samplers: plot_target={target} gave AUROCs {auc}")
+        aucs[target] = {k: v[0] for k, v in res.items() if k != "ood_data"}
+    log(json.dumps({"samplers": {"recons_per_s": n_all / s_all,
+                                 "recons_per_s_warm": n_warm / s_warm,
+                                 "model_evals_per_batch": per_batch, "ood": aucs,
+                                 "card": CARD}}))
+    log(f"samplers: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # the training path: small UNet at full width, 32x32x1, batch 128, 2 epochs
 TRAIN_BATCH, TRAIN_STEPS_PER_EPOCH = 128, 4
 TRAIN_ARGS = ["--model_type=small", "--image_size=32", "--is_grayscale=1",
@@ -697,19 +858,20 @@ def read_launches() -> dict:
             "groupnorm_act_cluster": fns["groupnorm_act"].cluster_launches}
 
 
-def phase_train_step(dev: torch.device) -> None:
-    """One fp32 training step's loss and gradients: the full-width small UNet
-    through the kernels on the card against the plain versions on the CPU."""
+def phase_train_step(dev: torch.device, preset: str = "small", size: int = 32) -> None:
+    """One fp32 training step's loss and gradients: the UNet (the full-width
+    small one unless `preset` says otherwise) through the kernels on the
+    card against the plain versions on the CPU."""
     from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
     from ddpm_ood_tpu_torch.train.ddpm import DDPMTrainStep
 
     rng = np.random.default_rng(1)
-    x0 = torch.from_numpy(rng.uniform(size=(4, 1, 32, 32)).astype(np.float32))
-    noise = torch.from_numpy(rng.standard_normal((4, 1, 32, 32)).astype(np.float32))
+    x0 = torch.from_numpy(rng.uniform(size=(4, 1, size, size)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((4, 1, size, size)).astype(np.float32))
     t = torch.tensor([3, 250, 600, 999])
     out = {}
     for device in (torch.device("cpu"), dev):
-        model = seeded_small_unet(2).to(device, memory_format=torch.channels_last)
+        model = seeded_unet(2, preset).to(device, memory_format=torch.channels_last)
         step = DDPMTrainStep(model=model, sched=make_schedule(
             "scaled_linear_beta", 1000, 0.0015, 0.0195, device=device))
         reset_launches()
@@ -744,7 +906,8 @@ def phase_train_step(dev: torch.device) -> None:
         err = (got - ref).abs().max().item() / ref.abs().max().item()
         if not math.isfinite(err) or err > worst:
             worst, worst_name = err, name
-    log(f"train step: fp32 card vs CPU loss {l_gpu:.6f} vs {l_cpu:.6f} rel_err={loss_err:.3e}; "
+    log(f"train step ({preset} UNet, {size}x{size}): fp32 card vs CPU loss {l_gpu:.6f} vs "
+        f"{l_cpu:.6f} rel_err={loss_err:.3e}; "
         f"{len(g_cpu)} gradients, worst rel_err={worst:.3e} ({worst_name}) tol={GRAD_TOL:.0e}; "
         f"key-bias gradients (0 in exact arithmetic) at most {shift_free:.3e} against a "
         f"largest gradient of {scale:.3e}; launches {counts}")
@@ -866,6 +1029,7 @@ def main() -> int:
             phase_metrics(dev, npz)
             score = phase_main(dev, root, npz)
             phase_ood(root)
+            samplers = phase_samplers(dev, root)
             train = phase_train(dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -873,14 +1037,15 @@ def main() -> int:
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in KERNELS.items():
-        by_path = {"score": score.get(name, 0), "train": train[name]}
+        by_path = {"score": score.get(name, 0), "samplers": samplers.get(name, 0),
+                   "train": train[name]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in TC_COUNTED:
-            row["tensor_core_launches"] = score[f"{name}_tc"] + train[f"{name}_tc"]
+            row["tensor_core_launches"] = sum(p[f"{name}_tc"] for p in (score, samplers, train))
         if name == "groupnorm_act":
-            row["cluster_launches"] = (score["groupnorm_act_cluster"]
-                                       + train["groupnorm_act_cluster"])
+            row["cluster_launches"] = sum(p["groupnorm_act_cluster"]
+                                          for p in (score, samplers, train))
         kernels.append({**row, **summary[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

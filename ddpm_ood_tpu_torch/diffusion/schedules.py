@@ -109,6 +109,12 @@ def apply_snr_shift(sched: NoiseSchedule, factor: float) -> NoiseSchedule:
     )
 
 
+def lanes(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-lane (K,) or 0-dim tensor reshaped to broadcast against a
+    rank-`ndim` tensor with the lanes leading."""
+    return v.reshape(v.shape + (1,) * (ndim - v.dim()))
+
+
 def _gather(table: torch.Tensor, t, ndim: int) -> torch.Tensor:
     """table[t] broadcast against a sample of rank `ndim` with leading batch dim(s)."""
     t = torch.as_tensor(t, device=table.device)

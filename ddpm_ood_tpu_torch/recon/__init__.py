@@ -1,3 +1,3 @@
-from .sweep import ReconProgram, group_t_starts, plms_sweep
+from .sweep import ReconProgram, ddim_sweep, dpm_sweep, group_t_starts, plms_sweep
 
-__all__ = ["ReconProgram", "group_t_starts", "plms_sweep"]
+__all__ = ["ReconProgram", "ddim_sweep", "dpm_sweep", "group_t_starts", "plms_sweep"]

@@ -1,13 +1,18 @@
-"""Batched multi-start-point PLMS reconstruction sweep: the scoring hot path.
+"""Batched multi-start-point reconstruction sweep: the scoring hot path.
 
-Port of ``ddpm_ood_tpu/recon/sweep.py`` (``plms_sweep``, ``group_t_starts``
-and ``ReconProgram`` for ``sampler="plms"``). All K start points ("lanes") of
-a lane group move down one descending PLMS grid together; a lane joins once
-the grid reaches its start timestep (``t <= t_start``). Every grid step calls
-the UNet once on the flattened (K*B) batch. The JAX package compiles each
-group into one ``lax.scan``; here each group is a Python loop of eager
-launches whose per-step state stays on the device, so no step waits for
-the host.
+Port of ``ddpm_ood_tpu/recon/sweep.py`` (``plms_sweep``, ``ddim_sweep``,
+``dpm_sweep``, ``group_t_starts`` and ``ReconProgram``). All K start points
+("lanes") of a lane group move down one descending grid together; a lane
+joins once the grid reaches its start timestep (``t <= t_start``). Every
+grid step calls the UNet once on the flattened (K*B) batch. The JAX package
+compiles each group into one ``lax.scan``; here each group is a Python loop
+of eager launches whose per-step state stays on the device, so no step
+waits for the host. The sampler's step math runs in fp32 on the UNet's fp32
+output, also inside the bf16 autocast region.
+
+``sampler="plms_ref"`` is the reference's carried-history PLMS
+(``diffusion/plms.py:plms_reference_exact_sweep``): sequential, one UNet
+call of batch B per step, for parity with the paper's code, not for speed.
 
 Public edges keep the JAX layout, images and noise as (B, *spatial, C) and
 (K, B, *spatial, C); the UNet itself takes (N, C, *spatial) in channels_last,
@@ -16,6 +21,8 @@ which is a free permute of the same memory.
 ``metrics_tail`` is the port of the JAX program's ``_score_body`` for 2D
 pixel-space models: per-(lane, image) MSE, LPIPS, optionally 1 - SSIM and
 the lane-sum of squared residuals (the error maps), all in fp32.
+``score_elbo`` adds one UNet call per lane group at each lane's own start
+point and noise, and the variational-bound term (``diffusion/elbo.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +34,12 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..diffusion.plms import plms_init_state, plms_step, pndm_start_points, pndm_timesteps
-from ..diffusion.schedules import NoiseSchedule, add_noise
+from ..diffusion.ddim import ddim_step, ddim_timesteps
+from ..diffusion.dpm_solver import dpm_init_state, dpm_step
+from ..diffusion.elbo import elbo_terms_from_model
+from ..diffusion.plms import (plms_init_state, plms_reference_exact_sweep, plms_step,
+                              pndm_start_points, pndm_timesteps)
+from ..diffusion.schedules import NoiseSchedule, add_noise, lanes
 from ..ops.ssim import ssim_distance
 
 # model_fn(x (N, C, *spatial), t (N,) int) -> fp32 (N, C, *spatial)
@@ -78,6 +89,54 @@ def plms_sweep(
         state = plms_step(sched, state, _model_to_lane_major(out, k), t, step_ratio,
                           active=t <= t_starts)
     return state.x
+
+
+def ddim_sweep(
+    sched: NoiseSchedule,
+    model_fn: ModelFn,
+    x0: torch.Tensor,
+    noise: torch.Tensor,
+    timesteps_desc: torch.Tensor,
+    t_starts: torch.Tensor,
+    num_inference_steps: int,
+    b_scale: float = 1.0,
+) -> torch.Tensor:
+    """DDIM (eta = 0) form of ``plms_sweep``: the lane state is x alone."""
+    k = t_starts.shape[0]
+    step_ratio = sched.num_train_timesteps // num_inference_steps
+    x = add_noise(sched, (x0 * b_scale)[None], noise, t_starts)
+    n_imgs = k * x0.shape[0]
+    for t in timesteps_desc:
+        out = model_fn(_lane_major_to_model(x), t.expand(n_imgs))
+        new_x = ddim_step(sched, _model_to_lane_major(out, k), t, t - step_ratio, x)
+        x = torch.where(lanes(t <= t_starts, x.dim()), new_x, x)
+    return x
+
+
+def dpm_sweep(
+    sched: NoiseSchedule,
+    model_fn: ModelFn,
+    x0: torch.Tensor,
+    noise: torch.Tensor,
+    timesteps_desc: torch.Tensor,
+    t_starts: torch.Tensor,
+    num_inference_steps: int,
+    b_scale: float = 1.0,
+) -> torch.Tensor:
+    """DPM-Solver++(2M) form of ``plms_sweep``: the lane state is (x,
+    prev_x0, has_prev), and each lane's first step is first order."""
+    k = t_starts.shape[0]
+    step_ratio = sched.num_train_timesteps // num_inference_steps
+    state = dpm_init_state(add_noise(sched, (x0 * b_scale)[None], noise, t_starts))
+    n_imgs = k * x0.shape[0]
+    for t in timesteps_desc:
+        out = model_fn(_lane_major_to_model(state.x), t.expand(n_imgs))
+        state = dpm_step(sched, state, _model_to_lane_major(out, k), t, t - step_ratio,
+                         t + step_ratio, active=t <= t_starts)
+    return state.x
+
+
+SWEEPS = {"plms": plms_sweep, "ddim": ddim_sweep, "dpm": dpm_sweep}
 
 
 def group_t_starts(timesteps_desc: np.ndarray, t_starts: np.ndarray,
@@ -130,15 +189,17 @@ def metrics_tail(images: torch.Tensor, recon: torch.Tensor, b_scale: float = 1.0
 
 @dataclasses.dataclass
 class ReconProgram:
-    """Scoring program: noise -> PLMS sweep per lane group -> metrics.
+    """Scoring program: noise -> the sampler's sweep per lane group -> metrics.
 
     ``__call__(images, generator)`` maps one batch (B, *spatial, C) in [0, 1]
-    to (t_starts (K,), mse (K, B), perceptual (K, B)), plus ssim_distance
-    (K, B) when ``score_ssim`` is set; the highest-start lane's
+    to (t_starts (K,), mse (K, B), perceptual (K, B)), then elbo (K, B) in
+    bits/dim when ``score_elbo`` is set, then ssim_distance (K, B) when
+    ``score_ssim`` is set: the JAX program's order. The highest-start lane's
     reconstructions of up to 8 images are kept on ``last_preview``, and with
     ``score_error_maps`` the per-pixel squared error averaged over all K
     start points, (B, *spatial, C), on ``last_error_maps``. ``model_evals``
-    counts the UNet forwards made."""
+    counts the UNet calls made (of K*B images in a lane group's sweep and
+    its ELBO call, of B images under ``plms_ref``)."""
 
     sched: NoiseSchedule
     model_fn: ModelFn
@@ -147,6 +208,9 @@ class ReconProgram:
     inference_skip_factor: int = 1
     b_scale: float = 1.0
     num_groups: int = 8
+    # "plms" (fresh history per start point), "plms_ref" (the reference's
+    # carried history, sequential), "ddim" (eta = 0) or "dpm" (DPM-Solver++(2M))
+    sampler: str = "plms"
     # the trainer passes bf16 on CUDA (fp32 params, bf16 compute); the whole
     # call runs under one autocast region, so each weight is cast once per
     # call rather than once per UNet forward. None computes in fp32.
@@ -155,12 +219,24 @@ class ReconProgram:
     # generator's Gaussian draw; tests use it to feed both packages one draw
     host_noise_fn: Optional[Callable] = None
     perceptual_fn: Optional[PerceptualFn] = None
+    score_elbo: bool = False
     score_ssim: bool = False
     score_error_maps: bool = False
 
     def __post_init__(self):
-        self.timesteps_desc = pndm_timesteps(self.sched.num_train_timesteps,
-                                             self.num_inference_steps)
+        if self.sampler in ("ddim", "dpm"):
+            self.timesteps_desc = ddim_timesteps(self.sched.num_train_timesteps,
+                                                 self.num_inference_steps)
+        elif self.sampler in ("plms", "plms_ref"):
+            self.timesteps_desc = pndm_timesteps(self.sched.num_train_timesteps,
+                                                 self.num_inference_steps)
+        else:
+            raise ValueError(f"Unknown sampler {self.sampler!r} (plms, plms_ref, ddim or dpm)")
+        if self.sampler == "plms_ref":
+            for flag in ("score_elbo", "score_ssim", "score_error_maps"):
+                if getattr(self, flag):
+                    raise ValueError(f"{flag} is not supported with sampler='plms_ref' (the "
+                                     "parity path emits exactly the reference's outputs)")
         self.t_starts = pndm_start_points(self.timesteps_desc, self.inference_skip_factor)
         self._groups = [
             (torch.as_tensor(ts, device=self.device), torch.as_tensor(st, device=self.device))
@@ -174,6 +250,10 @@ class ReconProgram:
         self.model_evals += 1
         return self.model_fn(x, t)
 
+    def _sample_model(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The UNet on B samples in the (B, *spatial, C) layout."""
+        return _model_to_lane_major(self._model(_lane_major_to_model(x[None]), t), 1)[0]
+
     def _noise(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.host_noise_fn is not None:
             arr = np.asarray(self.host_noise_fn(shape, self.t_starts), dtype=np.float32)
@@ -182,18 +262,40 @@ class ReconProgram:
             return torch.from_numpy(arr).to(self.device)
         return torch.randn(shape, generator=generator, device=self.device)
 
+    def _elbo(self, images: torch.Tensor, noise: torch.Tensor,
+              t_starts: torch.Tensor) -> torch.Tensor:
+        """(K, B) bits/dim: one UNet call on every lane's own x_t, the sample
+        its trajectory starts from; the terms in fp32 with autocast off."""
+        k, b = noise.shape[:2]
+        x_t = add_noise(self.sched, (images * self.b_scale)[None], noise, t_starts)
+        t_flat = t_starts.repeat_interleave(b)
+        out = _model_to_lane_major(self._model(_lane_major_to_model(x_t), t_flat), k)
+        with torch.autocast(images.device.type, enabled=False):
+            return elbo_terms_from_model(self.sched, out.flatten(0, 1).float(),
+                                         x_t.flatten(0, 1), noise.flatten(0, 1),
+                                         t_flat).view(k, b)
+
     def __call__(self, images, generator: Optional[torch.Generator] = None):
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         noise_full = self._noise((len(self.t_starts),) + tuple(images.shape), generator)
         autocast = (torch.autocast(self.device.type, dtype=self.autocast_dtype)
                     if self.autocast_dtype is not None else contextlib.nullcontext())
-        mses, percs, ssims, err_sum, offset = [], [], [], None, 0
+        if self.sampler == "plms_ref":
+            with torch.no_grad(), autocast:
+                recon = plms_reference_exact_sweep(
+                    self.sched, self._sample_model, images, noise_full, self.timesteps_desc,
+                    self.t_starts, self.num_inference_steps, self.b_scale)
+                mse, perc, self.last_preview, _, _ = metrics_tail(
+                    images, recon, self.b_scale, self.perceptual_fn)
+            return self.t_starts, mse, perc
+        sweep = SWEEPS[self.sampler]
+        mses, percs, elbos, ssims, err_sum, offset = [], [], [], [], None, 0
         with torch.no_grad(), autocast:
             for ts_desc, t_starts in self._groups:
                 k = t_starts.shape[0]
-                recon = plms_sweep(self.sched, self._model, images,
-                                   noise_full[offset: offset + k], ts_desc, t_starts,
-                                   self.num_inference_steps, self.b_scale)
+                noise = noise_full[offset: offset + k]
+                recon = sweep(self.sched, self._model, images, noise, ts_desc, t_starts,
+                              self.num_inference_steps, self.b_scale)
                 offset += k
                 mse, perc, preview, ssim_d, err = metrics_tail(
                     images, recon, self.b_scale, self.perceptual_fn, self.score_ssim,
@@ -201,10 +303,16 @@ class ReconProgram:
                 mses.append(mse)
                 percs.append(perc)
                 ssims.append(ssim_d)
+                if self.score_elbo:
+                    elbos.append(self._elbo(images, noise, t_starts))
                 if err is not None:  # lane sums, so the mean over groups is exact
                     err_sum = err if err_sum is None else err_sum + err
         self.last_preview = preview  # from the highest-start group
         if err_sum is not None:
             self.last_error_maps = err_sum / float(len(self.t_starts))
         out = (self.t_starts, torch.cat(mses), torch.cat(percs))
-        return out + (torch.cat(ssims),) if self.score_ssim else out
+        if self.score_elbo:
+            out += (torch.cat(elbos),)
+        if self.score_ssim:
+            out += (torch.cat(ssims),)
+        return out

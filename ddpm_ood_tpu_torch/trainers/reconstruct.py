@@ -1,14 +1,17 @@
 """Reconstruction pipeline: the OOD scoring workload on one device.
 
 Port of ``ddpm_ood_tpu/trainers/reconstruct.py`` for the slice the port
-serves: 2D pixel-space models and the batched PLMS sweep. It needs a
-checkpoint (found before the model is built), sweeps every start timestep of
-every image, and writes per-(image, t_start) rows
-{filename, type, t, perceptual_difference, mse[, ssim_distance]} to
+serves: 2D pixel-space models with Gaussian noise, and every sampler of the
+JAX CLI (``--sampler`` plms, plms_ref, ddim or dpm). It needs a checkpoint
+(found before the model is built), sweeps every start timestep of every
+image, and writes per-(image, t_start) rows
+{filename, type, t, perceptual_difference, mse[, elbo][, ssim_distance]} to
 ``ood/results_{val,in,<name>[_vflip|_hflip]}.csv`` in the JAX package's
 format (a leading index column), which both packages' ``ood_detection`` read.
 ``perceptual_difference`` is LPIPS (``losses/lpips.py``, weights from
-``LPIPS_WEIGHTS_NPZ``); ``--score_ssim`` adds ``ssim_distance`` and
+``LPIPS_WEIGHTS_NPZ``); ``--score_elbo`` adds ``elbo`` (the variational
+bound's term at each start point, bits/dim), ``--score_ssim`` adds
+``ssim_distance`` and
 ``--save_error_maps`` writes ``ood/error_maps/<dataset>/<stem>.npy``. The
 JAX package also renders each map to a ``.png`` with matplotlib, which the
 port does not use, so it writes the ``.npy`` files only.
@@ -39,7 +42,8 @@ from .base import BaseTrainer, refuse_flags
 log = logging.getLogger(__name__)
 
 COLUMNS = ("filename", "type", "t", "perceptual_difference", "mse")
-SSIM_COLUMN = "ssim_distance"  # after COLUMNS, with --score_ssim
+ELBO_COLUMN = "elbo"  # after COLUMNS, with --score_elbo
+SSIM_COLUMN = "ssim_distance"  # after COLUMNS and elbo, with --score_ssim
 NOISE_SEED = 777  # the JAX pipeline's PRNGKey(777 + process_index), one process
 
 
@@ -49,8 +53,6 @@ def refuse_unported_flags(args) -> None:
         return getattr(args, name, default)
 
     refuse_flags(args, [
-        ("--sampler", flag("sampler", "plms") != "plms", "only plms is ported"),
-        ("--score_elbo", bool(flag("score_elbo", 0)), ""),
         ("--simplex_noise", bool(flag("simplex_noise", 0)), "Gaussian noise only"),
         ("--quantize", flag("quantize", "none") not in (None, "none"), ""),
         ("--aot_cache", bool(flag("aot_cache")), "a TPU-only feature"),
@@ -132,9 +134,11 @@ class Reconstruct(BaseTrainer):
         self._programs = {}
         # (recons, seconds) per scored batch, every get_scores call
         self.batch_times: List[tuple] = []
+        self.score_elbo = bool(getattr(args, "score_elbo", 0))
         self.score_ssim = bool(getattr(args, "score_ssim", 0))
         self.save_error_maps = bool(getattr(args, "save_error_maps", 0))
-        self.columns = COLUMNS + ((SSIM_COLUMN,) if self.score_ssim else ())
+        self.columns = (COLUMNS + ((ELBO_COLUMN,) if self.score_elbo else ())
+                        + ((SSIM_COLUMN,) if self.score_ssim else ()))
         # LPIPS in fp32 on the scoring device, shared by every program
         self.perceptual = PerceptualLoss().to(device).eval()
         if self.save_error_maps:
@@ -160,7 +164,8 @@ class Reconstruct(BaseTrainer):
                 num_inference_steps=int(a.num_inference_steps),
                 inference_skip_factor=int(skip_factor), b_scale=self.b_scale,
                 num_groups=resolve_recon_groups(getattr(a, "recon_groups", "auto")),
-                autocast_dtype=self.autocast_dtype, perceptual_fn=self.perceptual,
+                sampler=getattr(a, "sampler", "plms"), autocast_dtype=self.autocast_dtype,
+                perceptual_fn=self.perceptual, score_elbo=self.score_elbo,
                 score_ssim=self.score_ssim, score_error_maps=self.save_error_maps,
             )
         return self._programs[skip_factor]
@@ -178,14 +183,14 @@ class Reconstruct(BaseTrainer):
             t1 = time.perf_counter()
             images = np.moveaxis(batch["image"], 1, -1)  # (B, *spatial, C)
             t_starts, *scores = program(images, generator)
-            mse, perc, *ssim_d = (s.cpu().numpy() for s in scores)  # waits for the device
+            # mse, perceptual_difference, then the optional columns in order
+            names = ("mse", "perceptual_difference") + self.columns[len(COLUMNS):]
+            by_name = {c: v.cpu().numpy() for c, v in zip(names, scores)}  # waits for the device
             rows = []
             for k, t in enumerate(t_starts):
                 for b, f in enumerate(batch["filename"]):
-                    row = {"filename": _stem(f), "type": dataset_name, "t": int(t),
-                           "perceptual_difference": float(perc[k, b]), "mse": float(mse[k, b])}
-                    if ssim_d:
-                        row[SSIM_COLUMN] = float(ssim_d[0][k, b])
+                    row = {"filename": _stem(f), "type": dataset_name, "t": int(t)}
+                    row.update((c, float(by_name[c][k, b])) for c in self.columns[3:])
                     rows.append(row)
             if self.save_error_maps:
                 self._save_error_maps(program.last_error_maps.cpu().numpy(), batch["filename"],

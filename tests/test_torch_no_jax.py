@@ -6,8 +6,10 @@ and the JAX package itself (the port keeps its own copies of what it needs),
 every module of ddpm_ood_tpu_torch imports, the tiny scoring CLI (with LPIPS
 from an npz, --score_ssim and --save_error_maps) and training CLI run on the
 CPU without launching a kernel, ``python -m ddpm_ood_tpu_torch.ood_detection``
-prints the AUROCs of the scoring CLI's CSVs, and building the CUDA kernels
-where there is no nvcc raises KernelBuildError instead of returning.
+prints the AUROCs of the scoring CLI's CSVs, ``python -m
+ddpm_ood_tpu_torch.quality_check --device=cpu`` trains, scores with DPM-Solver++
+and the ELBO, and prints its JSON, and building the CUDA kernels where there
+is no nvcc raises KernelBuildError instead of returning.
 """
 
 import json
@@ -48,10 +50,15 @@ from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
 
 recon = reconstruct.main(json.loads(sys.argv[2]))
 trainer = train_ddpm.main(json.loads(sys.argv[3]))
+quality_argv = json.loads(sys.argv[5])
 sys.argv = ["ood_detection"] + json.loads(sys.argv[4])  # python -m ddpm_ood_tpu_torch.ood_detection
 printed = io.StringIO()
 with contextlib.redirect_stdout(printed):
     runpy.run_module("ddpm_ood_tpu_torch.ood_detection", run_name="__main__")
+sys.argv = ["quality_check"] + quality_argv  # python -m ddpm_ood_tpu_torch.quality_check
+quality = io.StringIO()
+with contextlib.redirect_stdout(quality):
+    runpy.run_module("ddpm_ood_tpu_torch.quality_check", run_name="__main__")
 build = "not run: nvcc present"
 if _kernels.find_nvcc() is None:
     try:
@@ -71,6 +78,8 @@ print(json.dumps({
     "error_maps": sorted(str(p.relative_to(recon.out_dir)) for p in recon.out_dir.rglob("*.npy")),
     "ood_detection": printed.getvalue().splitlines(),
     "scores_csv": (recon.out_dir / "ood_scores_mse+perceptual.csv").is_file(),
+    "quality": [json.loads(line) for line in quality.getvalue().splitlines()
+                if line.startswith("{")],
     "build": build,
     "leaked": sorted(m for m, mod in sys.modules.items()
                      if mod is not None and m.split(".")[0] in BLOCKED),
@@ -84,9 +93,12 @@ def test_port_imports_and_runs_without_jax(tmp_path):
                        "--checkpoint_every=1")
     ood = [f"--output_dir={tmp_path / 'score' / 'output'}", f"--model_name={MODEL}",
            "--plot_target=mse+perceptual", "--report=auroc,aupr,fpr95,auroc_ci"]
+    quality = ["--device=cpu", "--epochs=1", "--size=8", "--n_train=8", "--n_eval=4",
+               "--steps=10", "--skip=5", "--samplers=dpm@10/5", "--elbo",
+               f"--workdir={tmp_path / 'quality'}"]
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, ",".join(BLOCKED), json.dumps(argv), json.dumps(train),
-         json.dumps(ood)],
+         json.dumps(ood), json.dumps(quality)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "1",  # see test_torch_reconstruct.py
              "LPIPS_WEIGHTS_NPZ": str(tmp_path / "score" / "lpips.npz")},
@@ -94,7 +106,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("trainers.reconstruct", "trainers.ddpm_trainer", "train_ddpm", "config",
-                "data.transforms", "ops._kernels"):
+                "data.transforms", "ops._kernels", "diffusion.ddim", "diffusion.dpm_solver",
+                "diffusion.elbo", "quality_check"):
         assert f"ddpm_ood_tpu_torch.{mod}" in got["modules"]
     assert got["leaked"] == []
     assert got["evals"] > 0 and got["launches"] == [0, 0, 0, 0]
@@ -110,4 +123,11 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         assert 0.0 <= auc <= 100.0 and "95% CI [" in line
     assert any(line.startswith("Average AUC: ") for line in got["ood_detection"])
     assert got["scores_csv"]
+    assert len(got["quality"]) == 1
+    quality = got["quality"][0]
+    assert quality["backend"] == "cpu" and list(quality["per_sampler"]) == ["dpm@10/5"]
+    entry = quality["per_sampler"]["dpm@10/5"]
+    assert set(entry) == {"easy", "hard", "easy_elbo", "hard_elbo", "easy_mse+elbo",
+                          "hard_mse+elbo"}
+    assert all(0.0 <= task["auroc"] <= 1.0 for task in entry.values())
     assert got["build"].startswith("KernelBuildError: nvcc not found"), got["build"]

@@ -9,16 +9,18 @@ scores the same images with the same weights (the checkpoint converted by
 its ``torch_to_flax_unet``), the same npz and the same noise draw (both
 programs take it from one host function), and the two agree column for
 column. ``pd.read_csv`` reads the port's CSVs with the JAX column set, and
-``ddpm_ood_tpu.ood.run_ood_detection`` scores them unchanged. Flags the
-slice does not serve raise NotImplementedError naming the flag.
+``ddpm_ood_tpu.ood.run_ood_detection`` scores them unchanged. A second pair
+of runs adds ``--sampler=dpm --score_elbo=1``: the DPM-Solver++ sweep and the
+``elbo`` column. Flags the slice does not serve raise NotImplementedError
+naming the flag.
 
 Tolerances, fp32 on both sides: t exact; mse rtol 1e-5 (the sweep's,
 tests/test_torch_plms_sweep.py); perceptual_difference atol 1e-6 on values
 ~0.05 and ssim_distance atol 1e-6 on values ~0.5 (LPIPS and SSIM of
 reconstructions that agree to ~1e-6, tests/test_torch_lpips.py and
-test_torch_ssim.py); the error maps atol 1e-4 (single pixels, each a mean
-of 4 squared errors below 1: the preview's tolerance in
-tests/test_torch_plms_sweep.py; 4.0e-6 observed).
+test_torch_ssim.py); elbo rtol 1e-5 (tests/test_torch_elbo.py); the error
+maps atol 1e-4 (single pixels, each a mean of 4 squared errors below 1: the
+preview's tolerance in tests/test_torch_plms_sweep.py; 4.0e-6 observed).
 """
 
 from pathlib import Path
@@ -33,7 +35,7 @@ from ddpm_ood_tpu_torch import reconstruct as cli
 from ddpm_ood_tpu_torch.data.csv_splits import write_split_csv
 from ddpm_ood_tpu_torch.losses.lpips import ALEX_CHANNELS, ALEX_CONVS
 from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
-from ddpm_ood_tpu_torch.trainers.reconstruct import COLUMNS, SSIM_COLUMN, _CsvSink
+from ddpm_ood_tpu_torch.trainers.reconstruct import COLUMNS, ELBO_COLUMN, SSIM_COLUMN, _CsvSink
 from ddpm_ood_tpu_torch.utils.checkpoint import find_checkpoint, save_checkpoint
 
 MODEL = "port_fashionmnist"
@@ -150,11 +152,9 @@ def _jax_reconstruct(root: Path, argv: list) -> Path:
     return out / MODEL / "ood"
 
 
-@pytest.fixture(scope="module")
-def scored_run(tmp_path_factory):
+def _both_clis(root: Path, extra=()):
     """The port's scoring run and the JAX package's on the same inputs."""
-    root = tmp_path_factory.mktemp("port_cli")
-    argv = make_synthetic_run(root)
+    argv = make_synthetic_run(root) + list(extra)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("LPIPS_WEIGHTS_NPZ", str(root / "lpips.npz"))
         args = cli.parse_args(argv)
@@ -165,32 +165,60 @@ def scored_run(tmp_path_factory):
     return root, argv, recon, jax_ood
 
 
+@pytest.fixture(scope="module")
+def scored_run(tmp_path_factory):
+    return _both_clis(tmp_path_factory.mktemp("port_cli"))
+
+
+@pytest.fixture(scope="module")
+def dpm_elbo_run(tmp_path_factory):
+    return _both_clis(tmp_path_factory.mktemp("port_cli_dpm"),
+                      ["--sampler=dpm", "--score_elbo=1"])
+
+
 def _sorted_csv(path: Path) -> pd.DataFrame:
     return pd.read_csv(path).sort_values(["filename", "t"]).reset_index(drop=True)
 
 
-def test_cli_writes_the_jax_results_csvs(scored_run):
-    root, _, recon, jax_ood = scored_run
+def _assert_csvs_match_jax(run, extra_columns):
+    root, _, recon, jax_ood = run
     ood = root / "output" / MODEL / "ood"
     names = sorted(p.name for p in ood.glob("results_*.csv"))
     assert names == sorted(f"results_{n}.csv" for n in NAMES)
     assert not list(ood.glob(".*partial*"))
+    scores = ["mse", "perceptual_difference", *extra_columns]
     for name in names:
         df = pd.read_csv(ood / name)
-        assert list(df.columns) == ["Unnamed: 0", *COLUMNS, SSIM_COLUMN]  # the JAX layout
-        assert len(df) == 4 * 4 and df["filename"].nunique() == 4
-        assert sorted(df["t"].unique()) == sorted(recon._program(3).t_starts)
-        assert np.isfinite(df[["mse", "perceptual_difference", SSIM_COLUMN]]).all().all()
-        assert (df["perceptual_difference"] > 0).all() and (df[SSIM_COLUMN] > 0).all()
+        assert list(df.columns) == ["Unnamed: 0", *COLUMNS, *extra_columns]  # the JAX layout
+        t_starts = recon._program(3).t_starts  # 4 start points for plms, 3 for dpm
+        assert len(df) == 4 * len(t_starts) and df["filename"].nunique() == 4
+        assert sorted(df["t"].unique()) == sorted(t_starts)
+        assert np.isfinite(df[scores]).all().all()
+        assert (df[scores[1:]] > 0).all().all()
         want = _sorted_csv(jax_ood / name)
         got = _sorted_csv(ood / name)
         assert list(got.columns) == list(want.columns)
         for col in ("filename", "type", "t"):
             assert list(got[col]) == list(want[col]), (name, col)
-        np.testing.assert_allclose(got["mse"], want["mse"], rtol=1e-5, atol=0)
+        for col in ("mse", ELBO_COLUMN):
+            if col in scores:
+                np.testing.assert_allclose(got[col], want[col], rtol=1e-5, atol=0,
+                                           err_msg=f"{name} {col}")
         for col in ("perceptual_difference", SSIM_COLUMN):
             np.testing.assert_allclose(got[col], want[col], atol=METRIC_ATOL, rtol=0,
                                        err_msg=f"{name} {col}")
+
+
+def test_cli_writes_the_jax_results_csvs(scored_run):
+    _assert_csvs_match_jax(scored_run, [SSIM_COLUMN])
+
+
+def test_cli_dpm_with_elbo_writes_the_jax_results_csvs(dpm_elbo_run):
+    """--sampler=dpm --score_elbo=1: the elbo column sits between mse and
+    ssim_distance, as the JAX CLI writes it."""
+    _assert_csvs_match_jax(dpm_elbo_run, [ELBO_COLUMN, SSIM_COLUMN])
+    _, _, recon, _ = dpm_elbo_run
+    assert recon._program(3).sampler == "dpm"
 
 
 def test_cli_writes_the_jax_error_maps(scored_run):
@@ -253,8 +281,7 @@ def test_csv_sink_output_equals_pandas_to_csv(tmp_path):
 
 
 REFUSED = [
-    ("--sampler=ddim", "--sampler"), ("--sampler=plms_ref", "--sampler"),
-    ("--score_elbo=1", "--score_elbo"), ("--simplex_noise=1", "--simplex_noise"),
+    ("--simplex_noise=1", "--simplex_noise"),
     ("--quantize=int8", "--quantize"), ("--aot_cache=/tmp/aot", "--aot_cache"),
     ("--profile_dir=prof", "--profile_dir"), ("--resume=1", "--resume"),
     ("--spatial_dimension=3", "--spatial_dimension"),
@@ -265,6 +292,14 @@ REFUSED = [
 
 @pytest.mark.parametrize("flag", ["--score_ssim=1", "--save_error_maps=1"])
 def test_metrics_tail_flags_are_served(flag):
+    from ddpm_ood_tpu_torch.trainers.reconstruct import refuse_unported_flags
+
+    refuse_unported_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
+
+
+@pytest.mark.parametrize("flag", ["--sampler=ddim", "--sampler=plms_ref", "--sampler=dpm",
+                                  "--score_elbo=1"])
+def test_sampler_and_elbo_flags_are_served(flag):
     from ddpm_ood_tpu_torch.trainers.reconstruct import refuse_unported_flags
 
     refuse_unported_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
