@@ -55,7 +55,26 @@ Phases, each fatal on failure:
                  run_ood_detection for elbo and mse+elbo on its CSVs. Every
                  path launches 27 GroupNorms and 4 flash forwards per UNet
                  forward (in bf16 on the cluster and tensor-core kernels).
- 10. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
+ 10. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
+                 the small UNet in 3D on (2, 128, 8, 8, 8) latents; the
+                 Decathlon VQ-VAE (four 256-channel levels, 2048 codes of
+                 width 128) encoding 32^3 volumes, its quantizer's indices
+                 (equal outside near-ties, which are counted) and its
+                 decoder; the latent ReconProgram (encode, --latent_pad to
+                 4^3, 10-step PLMS with the noise passed in, un-pad, decode,
+                 fake-3D LPIPS): its (K, B) MSE and LPIPS tables.
+ 11. ldm      -- the scoring CLI on a 3D latent diffusion model at the
+                 reference's Decathlon geometry (128^3 x 1 volumes, 8^3 x 128
+                 latents; seeded VQ-VAE checkpoint.pth with its
+                 vqvae_config.json, seeded small 3D UNet), batch 2, LPIPS from
+                 the npz, --score_ssim=1 --save_error_maps=1: PLMS 100/2, then
+                 --sampler=dpm 25/1. Checks finite non-zero columns, 3D error
+                 maps, 27 GroupNorm (cluster) and 4 flash (tensor-core)
+                 launches per UNet forward, run_ood_detection on the CSVs;
+                 prints latent-recons/s, the device seconds of encode, UNet
+                 forwards, decode and metrics tail (CUDA events), and peak
+                 device memory.
+ 12. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
@@ -64,8 +83,8 @@ Phases, each fatal on failure:
                  and dQ on tensor cores), and that the scoring CLI
                  loads the trained checkpoint.pth.
 
-Launch counts are set to 0 just before each of the three CLI runs (scoring,
-the samplers' scoring, training) and read just after. The line before the
+Launch counts are set to 0 just before each CLI run (scoring, the samplers'
+scoring, the two latent scoring runs, training) and read just after. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. The script imports no JAX.
 """
@@ -113,16 +132,31 @@ ROOT = Path(__file__).resolve().parent
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LSE_TOL = 1e-4
+# (N, C) of each sample, batch 64: every one of the 2D small UNet's at 32x32,
+# and of the 3D small UNet's on the 8x8x8 latents of the latent diffusion path
+# (N = 512, 64, 8), whose deepest level (2x2x2, 8 rows) takes 14 of a
+# forward's 27 GroupNorm launches
 GN_SHAPES = [(1024, 128), (1024, 256), (1024, 384), (256, 128), (256, 256),
-             (256, 384), (256, 512), (64, 256), (64, 512)]
+             (256, 384), (256, 512), (64, 256), (64, 512),
+             (512, 128), (512, 256), (512, 384), (512, 512), (64, 128), (64, 384),
+             (8, 256), (8, 512)]
 # a sample over 8 blocks' shared memory in both dtypes (2 MB in bf16): the
 # one-block-per-group kernel of csrc/groupnorm.cu
 GN_OVERSIZED = [(4096, 256)]
+# and one of 4.9 MB in bf16: a 384-channel level-0 sample of 20x20x16 latents
+GN_OVERSIZED_LDM = (6400, 384)
+GN_LDM = (512, 384)  # the summary's latent-diffusion GroupNorm shapes: level 0,
+GN_LDM_DEEPEST = (8, 512)  # and the deepest level's concatenated skip
+# the spatial shape of N rows, for the library call's (B, C, *spatial) view
+GN_SPATIAL = {512: (8, 8, 8), 8: (2, 2, 2), 6400: (20, 20, 16)}
 # (B*H, N, D): scoring's K*B = 64, training's batch of 128, and ragged ones: N
 # past a 64-key tile at D = 256, two key tiles at a D that pads to 64, three
-# at a D that pads to 128, and 16 key tiles at D = 64
+# at a D that pads to 128, and 16 key tiles at D = 64; then the 3D small
+# UNet's deepest level, N = 8 tokens (2x2x2) at D = 256, inside one 16-row,
+# 64-key tile: a 17-lane group of batch 32, and of batch 2
 ATTN_SHAPES = [(64, 64, 256), (128, 64, 256), (8, 100, 256), (4, 72, 40), (2, 130, 96),
-               (4, 1000, 64)]
+               (4, 1000, 64), (544, 8, 256), (34, 8, 256)]
+ATTN_LDM = (544, 8, 256, torch.bfloat16)  # the summary's latent-diffusion attention shape
 # ptxas must show no spill
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
 ATTN_SUMMARY = (128, 64, 256, torch.bfloat16)  # the training path's shape
@@ -207,15 +241,17 @@ def phase_kernels(dev: torch.device) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    summary = {}
+    summary, gn_ldm, attn_ldm = {}, {}, {}
     worst = 0.0
+    oversized = GN_OVERSIZED + [GN_OVERSIZED_LDM]
     for dtype in (torch.float32, torch.bfloat16):
-        for n, c in GN_SHAPES + GN_OVERSIZED:
+        for n, c in GN_SHAPES + oversized:
+            spatial = GN_SPATIAL.get(n, (math.isqrt(n),) * 2)
             x = (torch.rand((64, n, c), generator=gen, device=dev) * 2 - 1).to(dtype)
             gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
             beta = torch.rand((c,), generator=gen, device=dev) - 0.5
             plan = cluster_plan(n, c, 32, x.element_size())
-            if (plan is None) != ((n, c) in GN_OVERSIZED):
+            if (plan is None) != ((n, c) in oversized):
                 raise PhaseError(f"groupnorm N={n} C={c} {dtype}: cluster plan {plan}")
             kernel = f"cluster of {plan[0]}" if plan else "one block per group"
             for act in ("none", "silu"):
@@ -232,12 +268,13 @@ def phase_kernels(dev: torch.device) -> dict:
                 ms = time_cuda(lambda: groupnorm_act(x, gamma, beta, 32, 1e-6, act))
                 plain = time_cuda(lambda: groupnorm_act_reference(x, gamma, beta, 32, 1e-6, act))
                 lib = None
-                if act == "none":  # F.group_norm on the same memory: a channels_last
-                    side = math.isqrt(n)  # (B, C, H, W) view of (B, H*W, C)
-                    x4 = x.reshape(64, side, side, c).permute(0, 3, 1, 2)
+                if act == "none":  # F.group_norm on the same memory: a channels-last
+                    nd = len(spatial)  # (B, C, *spatial) view of (B, N, C)
+                    xl = x.reshape((64,) + spatial + (c,)).permute(
+                        (0, nd + 1) + tuple(range(1, nd + 1)))
                     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
-                    lib = time_cuda(lambda: F.group_norm(x4, 32, g_lib, b_lib, 1e-6))
-                log(f"groupnorm B=64 N={n} C={c} G=32 {act:4s} {str(dtype)[6:]:8s} "
+                    lib = time_cuda(lambda: F.group_norm(xl, 32, g_lib, b_lib, 1e-6))
+                log(f"groupnorm B=64 N={n} {spatial} C={c} G=32 {act:4s} {str(dtype)[6:]:8s} "
                     f"({kernel}) "
                     f"max_abs_err={err:.3e} tol={GN_TOL[dtype]:.0e} kernel={ms:.4f} ms "
                     f"plain={plain:.4f} ms library="
@@ -245,12 +282,19 @@ def phase_kernels(dev: torch.device) -> dict:
                     + f" {'ok' if err <= GN_TOL[dtype] else 'FAIL'}")
                 _check("groupnorm", err, GN_TOL[dtype], f"N={n} C={c} {act} {dtype}")
                 worst = max(worst, err)
-                if (n, c, act, dtype) == (1024, 384, "none", torch.bfloat16):
-                    summary["groupnorm_act"] = {
-                        "ms": ms, "plain_ms": plain, "library_ms": lib,
-                        **bound(2 * x.numel() * x.element_size() + 2 * c * 4,
-                                8 * x.numel(), dtype)}
-    summary["groupnorm_act"]["max_abs_err"] = worst
+                row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                       **bound(2 * x.numel() * x.element_size() + 2 * c * 4,
+                               8 * x.numel(), dtype)}
+                if act == "none" and dtype == torch.bfloat16:
+                    if (n, c) == (1024, 384):
+                        summary["groupnorm_act"] = row
+                    elif (n, c) == GN_LDM:
+                        gn_ldm["ldm"] = {"shape": [64, n, c], **row}
+                    elif (n, c) == GN_LDM_DEEPEST:
+                        gn_ldm["ldm_deepest"] = {"shape": [64, n, c], **row}
+                    elif (n, c) == GN_OVERSIZED_LDM:
+                        gn_ldm["ldm_one_block_per_group"] = {"shape": [64, n, c], **row}
+    summary["groupnorm_act"].update(gn_ldm, max_abs_err=worst)
 
     names = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     worst = {name: 0.0 for name in names}  # max abs error, both dtypes
@@ -330,7 +374,10 @@ def phase_kernels(dev: torch.device) -> dict:
                     worst_rel[name] = max(worst_rel[name], *(r for _, r in errs[name].values()))
                 if (bh, n, d, dtype) == ATTN_SUMMARY:
                     summary[name] = row
+                if (bh, n, d, dtype) == ATTN_LDM:
+                    attn_ldm[name] = {"shape": [bh, n, d], **row}
     for name in names:
+        summary[name]["ldm"] = attn_ldm[name]
         summary[name]["max_abs_err"] = worst[name]
         summary[name]["max_rel_err_bf16"] = worst_rel[name]
     return summary
@@ -436,7 +483,7 @@ def _write_dataset(root: Path) -> dict:
             for name, ood in (("val", False), ("in", False), ("checkerboard_test", True))}
 
 
-def _check_csv(path: Path, t_starts, columns=SCORE_COLUMNS) -> None:
+def _check_csv(path: Path, t_starts, columns=SCORE_COLUMNS, n_images: int = N_IMAGES) -> None:
     """Every image at every start point, and in every row a finite value of
     each of `columns`; those after mse are not all zero."""
     if not path.is_file():
@@ -450,8 +497,8 @@ def _check_csv(path: Path, t_starts, columns=SCORE_COLUMNS) -> None:
             raise PhaseError(f"{path.name}: a score of {columns} is missing or not "
                              f"finite in {r}")
         per_image.setdefault(r["filename"], []).append(int(r["t"]))
-    if len(per_image) != N_IMAGES or any(sorted(v) != sorted(t_starts) for v in per_image.values()):
-        raise PhaseError(f"{path.name}: expected {N_IMAGES} images x {len(t_starts)} start points, "
+    if len(per_image) != n_images or any(sorted(v) != sorted(t_starts) for v in per_image.values()):
+        raise PhaseError(f"{path.name}: expected {n_images} images x {len(t_starts)} start points, "
                          f"got {len(rows)} rows over {len(per_image)} images")
     for c in columns[1:]:
         if not any(float(r[c]) for r in rows):
@@ -479,10 +526,9 @@ def _write_lpips_npz(path: Path, seed: int = 0) -> Path:
 
 
 def _npz_state_dict(npz: Path) -> dict:
-    from ddpm_ood_tpu_torch.losses.lpips import load_lpips_npz
-    from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict
+    from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict, load_params_npz
 
-    return jax_lpips_params_to_state_dict(load_lpips_npz(str(npz)))
+    return jax_lpips_params_to_state_dict(load_params_npz(str(npz)))
 
 
 def phase_metrics(dev: torch.device, npz: Path) -> dict:
@@ -814,6 +860,347 @@ def phase_samplers(dev: torch.device, root: Path) -> dict:
     return launches
 
 
+# the latent diffusion path: the reference's Decathlon recipe (docs/RUNBOOK.md,
+# 3D LDM): 128^3 x 1 volumes, a VQ-VAE of four 256-channel levels with three
+# residual units each and 2048 codes of width 128 (8x8x8 latents), and the
+# small UNet in 3D on the latents; weights seeded, scoring batch cut from 32
+# to LDM_BATCH
+LDM_VQVAE = dict(spatial_dims=3, in_channels=1, out_channels=1, num_res_layers=3,
+                 downsample_parameters=[[2, 4, 1, 1]] * 4,
+                 upsample_parameters=[[2, 4, 1, 1, 0]] * 4, num_channels=[256] * 4,
+                 num_res_channels=[256] * 4, num_embeddings=2048, embedding_dim=128,
+                 decay=0.9, commitment_cost=0.25, epsilon=1e-5, dropout=0.0, ddp_sync=True)
+LDM_SIZE, LDM_BATCH, LDM_MODEL = 128, 2, "smoke_decathlon"
+LDM_ARGS = ["--spatial_dimension=3", "--model_type=small", "--image_roi=[160,160,128]",
+            f"--image_size={LDM_SIZE}", "--is_grayscale=1", "--prediction_type=epsilon",
+            "--beta_schedule=scaled_linear_beta",
+            "--beta_start=0.0015", "--beta_end=0.0195", "--b_scale=1.0"]
+LDM_GRIDS = (("plms", ["--num_inference_steps=100", "--inference_skip_factor=2"]),
+             ("dpm", ["--sampler=dpm", "--num_inference_steps=25",
+                      "--inference_skip_factor=1"]))
+# the fp32 card-vs-CPU checks run the VQ-VAE on 32^3 volumes (2^3 latents,
+# padded to 4^3), which keeps the CPU's side to about a minute
+LDM_CHECK_SIZE, LDM_CHECK_PAD = 32, (1, 1, 1, 1, 1, 1)
+# quantizer indices, card vs CPU: equal wherever the CPU's float64 runner-up
+# distance exceeds the best by more than this share of the largest distance
+# (fp32 distances of ~1e2 round differently on the two by ~1e-5)
+TIE_MARGIN = 1e-5
+
+
+def _ldm_models(seed: int = 0):
+    """The seeded Decathlon VQ-VAE and 3D small UNet, on the CPU."""
+    from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
+    from ddpm_ood_tpu_torch.models.vqvae import VQVAE
+
+    torch.manual_seed(seed)
+    vq = VQVAE(**LDM_VQVAE).eval()
+    # the default init decodes to values about 0.1 wide just below 0, which
+    # the clip to [0, 1] before the metrics flattens to 0: spread them 8x and
+    # centre them inside (0, 1), so the scores depend on what was decoded
+    with torch.no_grad():
+        last = vq.decoder.blocks[-1].conv
+        last.weight.mul_(8.0)
+        last.bias.fill_(0.37)
+    unet = random_init_(make_unet("small", 3, 128, 128), torch.Generator().manual_seed(seed))
+    return vq, unet.eval()
+
+
+def _volumes(n: int, size: int, ood: bool, rng) -> np.ndarray:
+    """(n, 1, size, size, size) volumes: smooth 3D sine fields, or 3D
+    checkerboards of 4-voxel cells."""
+    zz, yy, xx = np.meshgrid(*(np.arange(size),) * 3, indexing="ij")
+    out = []
+    for i in range(n):
+        if ood:
+            v = (((xx // 4) + (yy // 4) + (zz // 4) + i) % 2).astype(np.float32)
+        else:
+            phase = rng.uniform(0, 2 * np.pi)
+            v = 0.5 + 0.5 * np.sin(2 * np.pi * (xx + yy + zz) / size + phase)
+        out.append(v.astype(np.float32)[None])
+    return np.stack(out)
+
+
+def _near_ties(z: np.ndarray, codebook: np.ndarray, margin: float) -> np.ndarray:
+    """(positions,) mask of latent vectors whose two nearest codes lie within
+    `margin` of the largest distance of each other, in float64."""
+    flat = z.reshape(-1, z.shape[-1]).astype(np.float64)
+    e = codebook.astype(np.float64)
+    d = (flat ** 2).sum(1)[:, None] - 2 * flat @ e.T + (e ** 2).sum(1)[None]
+    part = np.partition(d, 1, axis=1)
+    return (part[:, 1] - part[:, 0]) <= margin * np.abs(d).max()
+
+
+class _DeviceTimer:
+    """Device seconds of wrapped calls, from CUDA events recorded around each
+    (no synchronisation until ``seconds``)."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+        return timed
+
+    def seconds(self) -> dict:
+        torch.cuda.synchronize()
+        return {name: sum(a.elapsed_time(b) for a, b in ev) / 1e3
+                for name, ev in self.events.items()}
+
+
+def phase_ldm_pieces(dev: torch.device, npz: Path) -> None:
+    """fp32, TF32 off, card against CPU at full channel widths: the 3D small
+    UNet on 8^3 x 128 latents, the Decathlon VQ-VAE's encode, quantizer and
+    decode on 32^3 volumes, and the latent ReconProgram on a 10-step grid
+    with the noise passed in (MSE and LPIPS tables)."""
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.losses.lpips import PerceptualLoss
+    from ddpm_ood_tpu_torch.models.unet import memory_format
+    from ddpm_ood_tpu_torch.recon.sweep import ReconProgram
+
+    t0 = time.perf_counter()
+    vq, unet = _ldm_models()
+    fmt = memory_format(3)
+    models = {"cpu": (vq.to(memory_format=fmt), unet.to(memory_format=fmt))}
+    vq_card, unet_card = _ldm_models()
+    models["cuda"] = (vq_card.to(dev, memory_format=fmt), unet_card.to(dev, memory_format=fmt))
+    rng = np.random.default_rng(6)
+
+    x = torch.from_numpy(rng.standard_normal((2, 128, 8, 8, 8), dtype=np.float32))
+    t = torch.tensor([20, 900])
+    with torch.no_grad():
+        ref = models["cpu"][1](x.to(memory_format=fmt), t)
+        reset_launches()
+        got = models["cuda"][1](x.to(dev, memory_format=fmt), t.to(dev)).cpu()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got16 = models["cuda"][1](x.to(dev, memory_format=fmt), t.to(dev)).cpu()
+        torch.cuda.synchronize()
+    _check_launches(read_launches(), 2, "3D small UNet forwards", bf16=False)
+    scale = max(1.0, ref.abs().max().item())
+    err, err16 = ((g - ref).abs().max().item() / scale for g in (got, got16))
+    log(f"ldm: 3D small UNet (2, 128, 8, 8, 8) forward fp32 card vs CPU rel_err={err:.3e} "
+        f"tol={FWD_TOL:.0e}; bf16 autocast vs CPU fp32 rel_err={err16:.3e} (reported); "
+        f"{GN_PER_FORWARD} GroupNorm and {ATTN_PER_FORWARD} flash launches per forward")
+    if not (math.isfinite(err) and err <= FWD_TOL and math.isfinite(err16)):
+        raise PhaseError(f"3D UNet forward on the card disagrees with the CPU: {err}")
+
+    size = LDM_CHECK_SIZE
+    vols = torch.from_numpy(_volumes(2, size, False, rng))
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    with torch.no_grad():
+        z = {side: models[side][0].encode(vols.to(d, memory_format=fmt)).cpu()
+             for side, d in devices.items()}
+        # the quantizer and the decoder both take the CPU's latents
+        q = {side: models[side][0].quantizer(z["cpu"].to(d, memory_format=fmt))
+             for side, d in devices.items()}
+        codes = {side: v[2].cpu().reshape(-1) for side, v in q.items()}
+        dec = {side: models[side][0].decode(q["cpu"][0].to(d, memory_format=fmt)).cpu()
+               for side, d in devices.items()}
+    err_z = (z["cuda"] - z["cpu"]).abs().max().item() / z["cpu"].abs().max().item()
+    err_dec = (dec["cuda"] - dec["cpu"]).abs().max().item() / dec["cpu"].abs().max().item()
+    codebook = vq.quantizer.quantizer.embedding.weight.detach().numpy()
+    ties = _near_ties(z["cpu"].movedim(1, -1).numpy(), codebook, TIE_MARGIN)
+    clear = torch.from_numpy(~ties)
+    same = (codes["cuda"] == codes["cpu"])
+    log(f"ldm: Decathlon VQ-VAE on (2, 1, {size}, {size}, {size}) fp32 card vs CPU: encoder "
+        f"rel_err={err_z:.3e}, decoder (on the CPU's quantized latents) rel_err={err_dec:.3e}, "
+        f"tol={FWD_TOL:.0e}; quantizer indices equal at {int(same.sum())} of {same.numel()} "
+        f"positions, {int(ties.sum())} within {TIE_MARGIN:.0e} of a tie (held equal outside)")
+    if not (err_z <= FWD_TOL and err_dec <= FWD_TOL and bool(same[clear].all())):
+        raise PhaseError(f"VQ-VAE on the card disagrees with the CPU: encoder {err_z}, decoder "
+                         f"{err_dec}, {int((~same[clear]).sum())} indices differ outside ties")
+
+    def host_noise(shape, t_starts):
+        return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+
+    # each side's sweep latents (un-padded) and decoded volumes (before / b_scale
+    # and the clip to [0, 1], which saturates the seeded decoder's outputs and
+    # would hide a wrong decode from the MSE table), one lane per decode call
+    tables, latents, decoded = {}, {}, {}
+    for side, device in devices.items():
+        v, u = models[side]
+
+        def decode(zz, v=v, side=side):
+            latents.setdefault(side, []).append(zz.cpu())
+            out = v.decode_stage_2_outputs(zz.movedim(-1, 1)).movedim(1, -1)
+            decoded.setdefault(side, []).append(out.cpu())
+            return out
+
+        prog = ReconProgram(
+            sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195, device=device),
+            model_fn=u, device=device, num_inference_steps=10, inference_skip_factor=3,
+            num_groups=2, host_noise_fn=host_noise,
+            encode_fn=lambda xx, v=v: v.encode_stage_2_inputs(xx.movedim(-1, 1)).movedim(1, -1),
+            decode_fn=decode, latent_pad=LDM_CHECK_PAD,
+            perceptual_fn=PerceptualLoss(weights_path=str(npz), spatial_dims=3).to(device))
+        out = prog(vols.movedim(1, -1).numpy())
+        tables[side] = {"mse": out[1].cpu(), "perceptual_difference": out[2].cpu()}
+    k = len(prog.t_starts)
+    lat = {side: torch.stack(v) for side, v in latents.items()}  # (K, B, *latent, E)
+    dec = {side: torch.stack(v) for side, v in decoded.items()}  # (K, B, *spatial, 1)
+    if lat["cpu"].shape[:2] != (k, 2) or dec["cpu"].shape != (k, 2) + (size,) * 3 + (1,):
+        raise PhaseError(f"latent ReconProgram decoded {tuple(lat['cpu'].shape)} latents into "
+                         f"{tuple(dec['cpu'].shape)} volumes, not {k} lanes of 2")
+    # an image whose encoding holds a tie may take another code on each side,
+    # and then a lane's sweep starts elsewhere; a lane whose swept latents hold
+    # one may decode another code
+    image_ties = torch.from_numpy(ties.reshape(2, -1).any(-1))
+    entry_ties = torch.from_numpy(
+        _near_ties(lat["cpu"].numpy(), codebook, TIE_MARGIN).reshape(k, 2, -1).any(-1))
+    keep = ~(entry_ties | image_ties[None])
+    if not keep.any():
+        raise PhaseError(f"latent ReconProgram: every (lane, image) entry holds a near-tie "
+                         f"({int(entry_ties.sum())} of the sweep, {int(image_ties.sum())} "
+                         "images of the encoding)")
+    lat_keep = ~image_ties[None].expand(k, 2)
+    errs = {  # the volumes relative to their largest |value|, the tables entry by entry
+        "latents": ((lat["cuda"] - lat["cpu"])[lat_keep].abs().max()
+                    / lat["cpu"][lat_keep].abs().max()).item(),
+        "decoded (before the clip)": ((dec["cuda"] - dec["cpu"])[keep].abs().max()
+                                      / dec["cpu"][keep].abs().max()).item(),
+        **{n: ((tables["cuda"][n] - want).abs() / want.abs().clamp_min(1e-6))[keep].max().item()
+           for n, want in tables["cpu"].items()}}
+    inside = ((dec["cpu"] > 0) & (dec["cpu"] < 1)).float().mean().item()
+    finite = all(bool(torch.isfinite(t).all()) for tab in tables.values() for t in tab.values())
+    log(f"ldm: latent ReconProgram (plms 10/3, latent_pad {LDM_CHECK_PAD}, (K, B) = ({k}, 2)) "
+        f"fp32 card vs CPU max_rel_err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" tol={FWD_TOL:.0e} over {int(keep.sum())} of {keep.numel()} (lane, image) entries "
+        f"(the latents over all lanes of {int((~image_ties).sum())} of 2 images); "
+        f"{int(entry_ties.sum())} hold a near-tie of the re-quantization, "
+        f"{int(image_ties.sum())} images one of the encoding (held finite only); "
+        f"{inside:.1%} of the decoded voxels lie inside (0, 1)")
+    if not (finite and all(math.isfinite(e) and e <= FWD_TOL for e in errs.values())):
+        raise PhaseError(f"latent ReconProgram on the card disagrees with the CPU: {errs}")
+    if inside < 0.5:
+        raise PhaseError(f"only {inside:.1%} of the decoded voxels lie inside (0, 1): the clip "
+                         "flattens the rest, and the MSE and LPIPS tables hold little")
+    log(f"ldm: card-vs-CPU checks took {time.perf_counter() - t0:.1f} s")
+
+
+def _ldm_cli(argv: list):
+    """One latent scoring CLI run in this process with its program's encode,
+    UNet, decode and metrics tail timed on the device; returns (Reconstruct,
+    launches, device seconds by part, wall seconds, peak GiB)."""
+    from ddpm_ood_tpu_torch import reconstruct as cli
+    from ddpm_ood_tpu_torch.recon import sweep as sweep_mod
+
+    args = cli.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    recon = cli.Reconstruct(args, cli.resolve_device(args.device))
+    prog = recon._program(args.inference_skip_factor)
+    timer = _DeviceTimer()
+    prog.encode_fn = timer.wrap("encode", prog.encode_fn)
+    prog.decode_fn = timer.wrap("decode", prog.decode_fn)
+    prog.model_fn = timer.wrap("unet", prog.model_fn)
+    tail = sweep_mod.metrics_tail
+    sweep_mod.metrics_tail = timer.wrap("metrics_tail", tail)
+    try:
+        recon.reconstruct(args)
+    finally:
+        sweep_mod.metrics_tail = tail
+    parts = timer.seconds()
+    wall = time.perf_counter() - t0
+    return recon, read_launches(), parts, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_ldm(dev: torch.device, root: Path, batch: int = LDM_BATCH) -> dict:
+    """The scoring CLI on a 3D latent diffusion model at the Decathlon
+    geometry: PLMS 100/2 and DPM-Solver++ 25/1, LPIPS from the npz, SSIM and
+    error maps, on `batch` volumes in each of the val, in and out sets (one
+    batch each); then run_ood_detection on the CSVs."""
+    from ddpm_ood_tpu_torch.diffusion.ddim import ddim_timesteps
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.ood import run_ood_detection
+    from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
+    from ddpm_ood_tpu_torch.trainers.reconstruct import resolve_recon_groups
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    ldm = root / "ldm"
+    rng = np.random.default_rng(8)
+    csvs = {}
+    for name, ood in (("val", False), ("in", False), ("Task02_Heart_test", True)):
+        (ldm / name).mkdir(parents=True)
+        paths = []
+        for i, v in enumerate(_volumes(batch, LDM_SIZE, ood, rng)):
+            paths.append(str(ldm / name / f"{name}_{i}.npy"))
+            np.save(paths[-1], v)
+        csvs[name] = ldm / f"{name}.csv"
+        csvs[name].write_text(",".join(paths))
+    vq, unet = _ldm_models()
+    (ldm / "vqvae").mkdir()
+    save_checkpoint(ldm / "vqvae" / "checkpoint.pth", vq.state_dict())
+    (ldm / "vqvae" / "vqvae_config.json").write_text(json.dumps(LDM_VQVAE))
+    launches = {}
+    for sampler, grid in LDM_GRIDS:
+        out = ldm / f"output_{sampler}"
+        (out / LDM_MODEL).mkdir(parents=True)
+        save_checkpoint(out / LDM_MODEL / "checkpoint.pth", unet.state_dict())
+        argv = [f"--output_dir={out}", f"--model_name={LDM_MODEL}",
+                f"--vqvae_checkpoint={ldm / 'vqvae' / 'checkpoint.pth'}",
+                f"--validation_ids={csvs['val']}", f"--in_ids={csvs['in']}",
+                f"--out_ids={csvs['Task02_Heart_test']}", "--device=cuda", *LDM_ARGS,
+                f"--batch_size={batch}", *grid, "--score_ssim=1", "--save_error_maps=1"]
+        log("ldm: python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
+        recon, counts, parts, wall, peak = _ldm_cli(argv)
+        for name, value in counts.items():
+            launches[name] = launches.get(name, 0) + value
+        steps = int(grid[-2].split("=")[1])
+        ts = (pndm_timesteps if sampler == "plms" else ddim_timesteps)(1000, steps)
+        t_starts = pndm_start_points(ts, int(grid[-1].split("=")[1]))
+        groups = group_t_starts(ts, t_starts, resolve_recon_groups("auto", 3))
+        evals = sum(p.model_evals for p in recon._programs.values())
+        want = 3 * sum(len(s) for s, _ in groups)  # val, in, out: one batch each
+        log(f"ldm: {sampler} {evals} UNet forwards (expected {want}, {len(groups)} lane "
+            f"groups); launches {counts}")
+        if evals != want:
+            raise PhaseError(f"ldm {sampler}: {evals} UNet forwards, expected {want}")
+        _check_launches(counts, evals, f"ldm {sampler} scoring CLI", bf16=True)
+        for name in ("val", "in", "Task02"):
+            _check_csv(recon.out_dir / f"results_{name}.csv", t_starts, n_images=batch)
+            maps = sorted((recon.out_dir / "error_maps" / name).glob("*.npy"))
+            arrays = [np.load(m) for m in maps]
+            if len(maps) != batch or any(a.shape != (LDM_SIZE,) * 3 + (1,)
+                                         or not np.isfinite(a).all() for a in arrays):
+                raise PhaseError(f"ldm error_maps/{name}: {len(maps)} maps, expected "
+                                 f"{batch} finite {(LDM_SIZE,) * 3 + (1,)} ones")
+        n_all = sum(n for n, _ in recon.batch_times)
+        s_all = sum(s for _, s in recon.batch_times)
+        n_warm = sum(n for n, _ in recon.batch_times[1:])
+        s_warm = sum(s for _, s in recon.batch_times[1:])
+        split = {k: round(v, 3) for k, v in parts.items()}
+        log(f"ldm: {sampler} batches (latent recons, s) = "
+            f"{[(n, round(s, 3)) for n, s in recon.batch_times]}")
+        log(f"ldm: {sampler} {n_all / s_all:.3f} latent-recons/s over all "
+            f"{len(recon.batch_times)} batches, {n_warm / s_warm:.3f} over batches 2-"
+            f"{len(recon.batch_times)}; device seconds by part {split} of "
+            f"{s_all:.2f} s scoring ({wall:.1f} s CLI wall with set-up); peak device "
+            f"memory {peak:.2f} GiB; card {CARD}")
+        aucs = {}
+        for target in ("mse", "perceptual_difference", "ssim_distance"):
+            res = run_ood_detection(str(out), LDM_MODEL, plot_target=target,
+                                    out_datasets=["Task02"])
+            auc = res[f"Zscore_{target}"]
+            if len(auc) != 1 or not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in auc):
+                raise PhaseError(f"ldm {sampler}: plot_target={target} gave AUROCs {auc}")
+            aucs[target] = auc[0]
+        log(json.dumps({"ldm": {"sampler": sampler, "batch": batch,
+                                "latent_recons_per_s": n_all / s_all,
+                                "latent_recons_per_s_warm": n_warm / s_warm,
+                                "device_s": parts, "scoring_s": s_all, "wall_s": wall,
+                                "peak_gib": peak, "auroc": aucs, "card": CARD}}))
+    log(f"ldm: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # the training path: small UNet at full width, 32x32x1, batch 128, 2 epochs
 TRAIN_BATCH, TRAIN_STEPS_PER_EPOCH = 128, 4
 TRAIN_ARGS = ["--model_type=small", "--image_size=32", "--is_grayscale=1",
@@ -1030,6 +1417,8 @@ def main() -> int:
             score = phase_main(dev, root, npz)
             phase_ood(root)
             samplers = phase_samplers(dev, root)
+            phase_ldm_pieces(dev, npz)
+            ldm = phase_ldm(dev, root)
             train = phase_train(dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -1038,14 +1427,15 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {"score": score.get(name, 0), "samplers": samplers.get(name, 0),
-                   "train": train[name]}
+                   "ldm": ldm.get(name, 0), "train": train[name]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in TC_COUNTED:
-            row["tensor_core_launches"] = sum(p[f"{name}_tc"] for p in (score, samplers, train))
+            row["tensor_core_launches"] = sum(p[f"{name}_tc"]
+                                              for p in (score, samplers, ldm, train))
         if name == "groupnorm_act":
             row["cluster_launches"] = sum(p["groupnorm_act_cluster"]
-                                          for p in (score, samplers, train))
+                                          for p in (score, samplers, ldm, train))
         kernels.append({**row, **summary[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

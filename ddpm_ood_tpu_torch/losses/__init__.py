@@ -1,3 +1,3 @@
-from .lpips import LPIPS, PerceptualLoss, load_lpips_npz, load_lpips_state_dict, pad_to_min_32
+from .lpips import LPIPS, PerceptualLoss, load_lpips_state_dict, pad_to_min_32
 
-__all__ = ["LPIPS", "PerceptualLoss", "load_lpips_npz", "load_lpips_state_dict", "pad_to_min_32"]
+__all__ = ["LPIPS", "PerceptualLoss", "load_lpips_state_dict", "pad_to_min_32"]

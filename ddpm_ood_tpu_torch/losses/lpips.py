@@ -1,20 +1,20 @@
-"""LPIPS perceptual distance (AlexNet backbone), 2D, for OOD scoring.
+"""LPIPS perceptual distance (AlexNet backbone), 2D and fake 3D, for OOD scoring.
 
 Port of ``ddpm_ood_tpu/losses/lpips.py`` (``AlexNetFeatures``, ``LPIPS``,
-``pad_to_min_32``, ``load_lpips_npz`` and the 2D ``PerceptualLoss``): the
-forward of ``lpips.LPIPS(net="alex", version="0.1")`` as the reference's
-scoring wrapper builds it. The public edges keep the JAX layout, images as
+``pad_to_min_32`` and ``PerceptualLoss``, 2D and fake 3D): the forward of
+``lpips.LPIPS(net="alex", version="0.1")`` as the reference's scoring
+wrapper builds it. The public edges keep the JAX layout, images as
 (B, H, W, C) in [0, 1]; the convolutions run in (N, C, H, W). Everything is
 fp32: the JAX package computes LPIPS in fp32 (``PerceptualLoss(dtype=float32)``),
 so callers inside an autocast region switch it off around this module.
 
 Weights come from the ``.npz`` that the JAX package's ``save_lpips_npz``
-writes (keys ``params/net/conv0/kernel`` in HWIO, ``params/lin0`` as (C, 1)),
-found through ``LPIPS_WEIGHTS_NPZ`` as the JAX package finds it. Without one,
-the port draws a seeded init with Flax's default distributions. JAX draws its
-own from ``jax.random.PRNGKey(0)``, which torch cannot redraw, so the two
-packages agree only when both read one npz. The fake-3D (2.5D) wrapper is not
-ported.
+writes (keys ``params/net/conv0/kernel`` in HWIO, ``params/lin0`` as (C, 1);
+read by ``utils/convert.py:load_params_npz``), found through
+``LPIPS_WEIGHTS_NPZ`` as the JAX package finds it. Without one, the port
+draws a seeded init with Flax's default distributions. JAX draws its own
+from ``jax.random.PRNGKey(0)``, which torch cannot redraw, so the two
+packages agree only when both read one npz.
 """
 
 from __future__ import annotations
@@ -24,12 +24,11 @@ import math
 import os
 from typing import Dict, List, Mapping, Optional
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..utils.convert import jax_lpips_params_to_state_dict
+from ..utils.convert import jax_lpips_params_to_state_dict, load_params_npz
 
 log = logging.getLogger(__name__)
 
@@ -118,20 +117,6 @@ def pad_to_min_32(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
 
 
-def load_lpips_npz(path: str) -> dict:
-    """The nested params tree of an npz written by the JAX package's
-    ``save_lpips_npz`` ("params/net/conv0/kernel" -> tree[...]), as numpy."""
-    out: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            node = out
-            parts = key.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = np.asarray(data[key])
-    return out
-
-
 def seeded_lpips_state_dict() -> Dict[str, torch.Tensor]:
     """The port's deterministic fallback weights: Flax's default
     distributions (lecun_normal convs with zero biases; ``lin`` from
@@ -158,7 +143,7 @@ def load_lpips_state_dict(weights_path: Optional[str] = None) -> Dict[str, torch
     ``LPIPS_WEIGHTS_NPZ`` names, else the seeded fallback (logged)."""
     path = weights_path or os.environ.get("LPIPS_WEIGHTS_NPZ")
     if weights_path or (path and os.path.exists(path)):
-        return jax_lpips_params_to_state_dict(load_lpips_npz(path))
+        return jax_lpips_params_to_state_dict(load_params_npz(path))
     log.warning(
         "LPIPS: no weights npz (LPIPS_WEIGHTS_NPZ=%r), so the port draws its own seeded init; "
         "perceptual_difference then equals the JAX package's only when both packages read "
@@ -168,27 +153,87 @@ def load_lpips_state_dict(weights_path: Optional[str] = None) -> Dict[str, torch
     return seeded_lpips_state_dict()
 
 
-class PerceptualLoss(nn.Module):
-    """The reference's 2D perceptual wrapper: LPIPS on inputs zero-padded to
-    at least 32x32 (the reference's 28->32 rule), one score per image.
+# fake-3D views of (B, X, Y, Z, C): the permutation that puts the sliced axis
+# after the batch, as the JAX package orders them (the last one is scored)
+_VIEWS_3D = ((0, 1, 2, 3, 4), (0, 2, 1, 3, 4), (0, 3, 1, 2, 4))
 
-    ``forward(y, y_pred)``: y is (B, H, W, C); y_pred is (*lanes, B, H, W, C),
-    each lane scored against y. Returns (*lanes, B). The features of y are
-    computed once for every lane. Weights: `state_dict`, else
-    ``load_lpips_state_dict(weights_path)``."""
+
+class PerceptualLoss(nn.Module):
+    """The reference's perceptual wrapper, one score per image.
+
+    2D: LPIPS on inputs zero-padded to at least 32x32 (the reference's 28->32
+    rule). 3D ("fake 3D", the JAX package's ``PerceptualLoss(dimensions=3,
+    is_fake_3d=True)``): each volume is cut into 2D slices along one axis,
+    LPIPS runs on every slice, and a volume's score is the mean over its own
+    slices. The reference computes the three views (slices along X, Y and Z)
+    and keeps only the last, a quirk the JAX package keeps; so the port
+    computes only the last view, slices along Z, unless ``average_views``
+    asks for the mean of all three. ``drop_ratio`` keeps every
+    ``n // keep``-th slice of n, ``keep = max(1, int(n * (1 - drop_ratio)))``
+    of them, as the JAX package subsamples.
+
+    ``forward(y, y_pred)``: y is (B, *spatial, C); y_pred is
+    (*lanes, B, *spatial, C), each lane scored against y. Returns
+    (*lanes, B). The features of y are computed once for every lane, or
+    passed in as `y_features` (``image_features(y)``). Weights:
+    `state_dict`, else ``load_lpips_state_dict(weights_path)``."""
 
     def __init__(self, weights_path: Optional[str] = None,
-                 state_dict: Optional[Mapping[str, torch.Tensor]] = None):
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 spatial_dims: int = 2, drop_ratio: float = 0.0, average_views: bool = False):
         super().__init__()
+        if spatial_dims not in (2, 3):
+            raise NotImplementedError("Perceptual loss is implemented only in 2D and 3D.")
+        self.spatial_dims, self.average_views = spatial_dims, average_views
+        self.keep_ratio = 1.0 - drop_ratio
         self.lpips = LPIPS()
         self.lpips.load_state_dict(
             state_dict if state_dict is not None else load_lpips_state_dict(weights_path))
         self.requires_grad_(False)
 
-    def forward(self, y: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    def _views(self) -> tuple:
+        """The fake-3D views scored (None: the 2D images themselves)."""
+        if self.spatial_dims == 2:
+            return (None,)
+        return _VIEWS_3D if self.average_views else _VIEWS_3D[-1:]
+
+    def _slices(self, v: torch.Tensor, perm) -> torch.Tensor:
+        """The 2D slices of one fake-3D view of (*lanes, B, X, Y, Z, C), the
+        sliced axis after the batch and subsampled by ``drop_ratio``:
+        (*lanes, B * slices, h, w, C)."""
+        lead = v.dim() - 5
+        v = v.permute(tuple(range(lead)) + tuple(p + lead for p in perm))
+        if self.keep_ratio < 1.0:
+            n = v.shape[lead + 1]
+            keep = max(1, int(n * self.keep_ratio))
+            v = v[(slice(None),) * (lead + 1) + (slice(None, None, max(1, n // keep)),)]
+            v = v.narrow(lead + 1, 0, min(keep, v.shape[lead + 1]))
+        return v.flatten(lead, lead + 1)
+
+    def image_features(self, y: torch.Tensor) -> List[List[torch.Tensor]]:
+        """The LPIPS taps of y (B, *spatial, C), per scored view: what
+        ``forward`` takes as `y_features` to score several calls' lanes
+        against one batch."""
+        return [self._taps(y, perm) for perm in self._views()]
+
+    def _taps(self, v: torch.Tensor, perm) -> List[torch.Tensor]:
+        """The LPIPS taps of one view of (*lanes, B, *spatial, C)."""
+        v = v if perm is None else self._slices(v, perm)
+        return self.lpips.features(pad_to_min_32(v.flatten(0, v.dim() - 4)))
+
+    def forward(self, y: torch.Tensor, y_pred: torch.Tensor,
+                y_features: Optional[List[List[torch.Tensor]]] = None) -> torch.Tensor:
         lanes = tuple(y_pred.shape[: y_pred.dim() - y.dim()])
         if tuple(y_pred.shape[len(lanes):]) != tuple(y.shape):
             raise ValueError(f"y_pred {tuple(y_pred.shape)} is not (*lanes, *{tuple(y.shape)})")
-        fy = self.lpips.features(pad_to_min_32(y))
-        fp = self.lpips.features(pad_to_min_32(y_pred.reshape((-1,) + tuple(y.shape[1:]))))
-        return self.lpips.distance(fy, fp).view(lanes + (y.shape[0],))
+        if y.dim() != self.spatial_dims + 2:
+            raise ValueError(f"expected (B, *spatial, C) with {self.spatial_dims} spatial dims, "
+                             f"got {tuple(y.shape)}")
+        y_pred = y_pred.reshape((-1,) + tuple(y.shape))  # (L, B, *spatial, C)
+        views = []
+        for i, perm in enumerate(self._views()):
+            fy = self._taps(y, perm) if y_features is None else y_features[i]
+            d = self.lpips.distance(fy, self._taps(y_pred, perm))
+            views.append(d.view(y_pred.shape[0], y.shape[0], -1).mean(dim=-1))  # slice mean
+        out = views[0] if len(views) == 1 else torch.stack(views).mean(dim=0)
+        return out.view(lanes + (y.shape[0],))

@@ -1,3 +1,4 @@
 from .unet import DiffusionModelUNet, make_unet, random_init_
+from .vqvae import VQVAE
 
-__all__ = ["DiffusionModelUNet", "make_unet", "random_init_"]
+__all__ = ["DiffusionModelUNet", "VQVAE", "make_unet", "random_init_"]

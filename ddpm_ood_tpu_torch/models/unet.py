@@ -1,4 +1,4 @@
-"""Time-conditioned diffusion UNet (2D) with monai-generative state_dict names.
+"""Time-conditioned diffusion UNet (2D or 3D) with monai-generative state_dict names.
 
 Port of ``ddpm_ood_tpu/models/unet.py``. Module names follow
 monai-generative's ``DiffusionModelUNet`` (``conv_in.conv``,
@@ -6,13 +6,15 @@ monai-generative's ``DiffusionModelUNet`` (``conv_in.conv``,
 ``out.2.conv``, ...), so a reference ``.pth`` loads with ``strict=True``; the
 key sets equal ``tests/fixtures/monai_generative_unet_keys_{small,big}_2d.txt``.
 
-Layout: tensors are (B, C, H, W) in ``torch.channels_last`` memory format.
-A channels-last (B, C, H, W) tensor permuted to (B, H, W, C) is contiguous,
-which is the layout the GroupNorm kernel and the attention block read, so
-neither pays a transpose. Parameters stay fp32; on CUDA the trainer runs the
-forward under ``torch.autocast(bfloat16)``, so convolutions and projections
-compute in bf16 while GroupNorm keeps fp32 statistics, as the JAX package
-does on its accelerator.
+Layout: tensors are (B, C, *spatial) in ``torch.channels_last`` memory format
+(2D) or ``torch.channels_last_3d`` (3D), ``memory_format(spatial_dims)``.
+Such a tensor permuted to (B, *spatial, C) is contiguous, which is the layout
+the GroupNorm kernel and the attention block read, so neither pays a
+transpose. Attention runs over the flattened spatial tokens in 2D and 3D.
+Parameters stay fp32; on CUDA the trainer runs the forward under
+``torch.autocast(bfloat16)``, so convolutions and projections compute in
+bf16 while GroupNorm keeps fp32 statistics, as the JAX package does on its
+accelerator.
 
 Numerics that differ from torch defaults on purpose: GroupNorm eps is 1e-6,
 the downsample pads (1, 1) at stride 2 (torch ``padding=1``), the timestep
@@ -32,8 +34,23 @@ from ..ops.attention import attention
 from ..ops.groupnorm import groupnorm_act
 
 
+def memory_format(spatial_dims: int) -> torch.memory_format:
+    """The channels-last format of (B, C, *spatial) activations."""
+    return torch.channels_last_3d if spatial_dims == 3 else torch.channels_last
+
+
+def _to_channels_last_dims(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, *spatial) -> (B, *spatial, C), a view."""
+    return x.permute((0,) + tuple(range(2, x.dim())) + (1,))
+
+
+def _to_channels_first_dims(y: torch.Tensor) -> torch.Tensor:
+    """(B, *spatial, C) -> (B, C, *spatial), a view."""
+    return y.permute((0, y.dim() - 1) + tuple(range(1, y.dim() - 1)))
+
+
 class FusedGroupNormAct(nn.Module):
-    """GroupNorm (+ SiLU) over a (B, C, H, W) tensor through
+    """GroupNorm (+ SiLU) over a (B, C, *spatial) tensor through
     ``ops.groupnorm_act``; parameters named like ``nn.GroupNorm``'s."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6,
@@ -44,10 +61,10 @@ class FusedGroupNormAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # (B, H, W, C): a free view of a channels_last tensor, else a copy
-        y = groupnorm_act(x.permute(0, 2, 3, 1).contiguous(), self.weight, self.bias,
+        # (B, *spatial, C): a free view of a channels-last tensor, else a copy
+        y = groupnorm_act(_to_channels_last_dims(x).contiguous(), self.weight, self.bias,
                           self.num_groups, self.eps, self.act)
-        return y.permute(0, 3, 1, 2)
+        return _to_channels_first_dims(y)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -61,30 +78,31 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 
 
 class _Conv(nn.Module):
-    """A conv wrapped one level deep, for monai's ``.conv`` key segment."""
+    """A 2D or 3D conv wrapped one level deep, for monai's ``.conv`` key segment."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
+    def __init__(self, dims: int, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
+        conv = {2: nn.Conv2d, 3: nn.Conv3d}[dims]
+        self.conv = conv(cin, cout, kernel, stride=stride, padding=kernel // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, temb_ch: int, norm_num_groups: int):
+    def __init__(self, dims: int, in_ch: int, out_ch: int, temb_ch: int, norm_num_groups: int):
         super().__init__()
         self.norm1 = FusedGroupNormAct(norm_num_groups, in_ch, act="silu")
-        self.conv1 = _Conv(in_ch, out_ch, 3)
+        self.conv1 = _Conv(dims, in_ch, out_ch, 3)
         self.time_emb_proj = nn.Linear(temb_ch, out_ch)
         self.norm2 = FusedGroupNormAct(norm_num_groups, out_ch, act="silu")
-        self.conv2 = _Conv(out_ch, out_ch, 3)
-        self.skip_connection = _Conv(in_ch, out_ch, 1) if in_ch != out_ch else None
+        self.conv2 = _Conv(dims, out_ch, out_ch, 3)
+        self.skip_connection = _Conv(dims, in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
         t = self.time_emb_proj(F.silu(temb.float()))  # SiLU in fp32, as JAX
-        h = h + t[:, :, None, None]
+        h = h + t.view(t.shape + (1,) * (h.dim() - 2))
         h = self.conv2(self.norm2(h))
         if self.skip_connection is not None:
             x = self.skip_connection(x)
@@ -103,9 +121,10 @@ class AttentionBlock(nn.Module):
         self.proj_attn = nn.Linear(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, hh, ww = x.shape
-        n = hh * ww
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(b, n, c)  # free for channels_last
+        b, c = x.shape[:2]
+        spatial = tuple(x.shape[2:])
+        n = math.prod(spatial)
+        h = _to_channels_last_dims(self.norm(x)).reshape(b, n, c)  # free for channels-last
 
         def heads(a):  # (B, N, C) -> (B, heads, N, head_dim)
             return a.reshape(b, n, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
@@ -113,22 +132,22 @@ class AttentionBlock(nn.Module):
         out = attention(heads(self.to_q(h)), heads(self.to_k(h)), heads(self.to_v(h)),
                         1.0 / math.sqrt(self.head_dim))
         out = self.proj_attn(out.transpose(1, 2).reshape(b, n, c))
-        return x + out.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        return x + _to_channels_first_dims(out.reshape((b,) + spatial + (c,)))
 
 
 class Downsample(nn.Module):
-    def __init__(self, ch: int):
+    def __init__(self, dims: int, ch: int):
         super().__init__()
-        self.op = _Conv(ch, ch, 3, stride=2)  # padding 1 both sides, as JAX's (1, 1)
+        self.op = _Conv(dims, ch, ch, 3, stride=2)  # padding 1 both sides, as JAX's (1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
 
 
 class Upsample(nn.Module):
-    def __init__(self, ch: int):
+    def __init__(self, dims: int, ch: int):
         super().__init__()
-        self.conv = _Conv(ch, ch, 3)
+        self.conv = _Conv(dims, ch, ch, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # autocast would run nearest upsampling in fp32; it is exact in any dtype
@@ -148,22 +167,24 @@ class _Level(nn.Module):
 
 
 class _Middle(nn.Module):
-    def __init__(self, ch: int, temb_ch: int, heads_ch: int, groups: int):
+    def __init__(self, dims: int, ch: int, temb_ch: int, heads_ch: int, groups: int):
         super().__init__()
-        self.resnet_1 = ResnetBlock(ch, ch, temb_ch, groups)
+        self.resnet_1 = ResnetBlock(dims, ch, ch, temb_ch, groups)
         self.attention = AttentionBlock(ch, heads_ch, groups)
-        self.resnet_2 = ResnetBlock(ch, ch, temb_ch, groups)
+        self.resnet_2 = ResnetBlock(dims, ch, ch, temb_ch, groups)
 
     def forward(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         return self.resnet_2(self.attention(self.resnet_1(h, temb)), temb)
 
 
 class DiffusionModelUNet(nn.Module):
-    """2D epsilon-network. x: (B, C, H, W), best in channels_last; t: (B,) int.
-    Returns fp32 (B, out_channels, H, W)."""
+    """2D or 3D epsilon-network. x: (B, C, *spatial), best in
+    ``memory_format(spatial_dims)``; t: (B,) int. Returns fp32
+    (B, out_channels, *spatial)."""
 
     def __init__(
         self,
+        spatial_dims: int = 2,
         in_channels: int = 1,
         out_channels: int = 1,
         num_channels: Sequence[int] = (128, 256, 256),
@@ -173,13 +194,16 @@ class DiffusionModelUNet(nn.Module):
         norm_num_groups: int = 32,
     ):
         super().__init__()
+        if spatial_dims not in (2, 3):
+            raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
         chs = tuple(num_channels)
         self.num_channels = chs
+        self.spatial_dims = d = spatial_dims
         temb_ch = chs[0] * 4
         g = norm_num_groups
         self.time_embed = nn.Sequential(nn.Linear(chs[0], temb_ch), nn.SiLU(),
                                         nn.Linear(temb_ch, temb_ch))
-        self.conv_in = _Conv(in_channels, chs[0], 3)
+        self.conv_in = _Conv(d, in_channels, chs[0], 3)
 
         skip_chs: List[int] = [chs[0]]
         ch = chs[0]
@@ -187,33 +211,33 @@ class DiffusionModelUNet(nn.Module):
         for level, out_ch in enumerate(chs):
             blk = _Level()
             for _ in range(num_res_blocks):
-                blk.resnets.append(ResnetBlock(ch, out_ch, temb_ch, g))
+                blk.resnets.append(ResnetBlock(d, ch, out_ch, temb_ch, g))
                 ch = out_ch
                 if attention_levels[level]:
                     blk.attentions.append(AttentionBlock(ch, num_head_channels, g))
                 skip_chs.append(ch)
             if level != len(chs) - 1:
-                blk.downsampler = Downsample(ch)
+                blk.downsampler = Downsample(d, ch)
                 skip_chs.append(ch)
             self.down_blocks.append(blk)
 
-        self.middle_block = _Middle(ch, temb_ch, num_head_channels, g)
+        self.middle_block = _Middle(d, ch, temb_ch, num_head_channels, g)
 
         self.up_blocks = nn.ModuleList()
         for level in reversed(range(len(chs))):
             blk = _Level()
             for _ in range(num_res_blocks + 1):
-                blk.resnets.append(ResnetBlock(ch + skip_chs.pop(), chs[level], temb_ch, g))
+                blk.resnets.append(ResnetBlock(d, ch + skip_chs.pop(), chs[level], temb_ch, g))
                 ch = chs[level]
                 if attention_levels[level]:
                     blk.attentions.append(AttentionBlock(ch, num_head_channels, g))
             if level != 0:
-                blk.upsampler = Upsample(ch)
+                blk.upsampler = Upsample(d, ch)
             self.up_blocks.append(blk)
 
         # out.1 is the SiLU, fused into out.0's GroupNorm kernel
         self.out = nn.Sequential(FusedGroupNormAct(g, ch, act="silu"), nn.Identity(),
-                                 _Conv(ch, out_channels, 3))
+                                 _Conv(d, ch, out_channels, 3))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         temb = self.time_embed(timestep_embedding(t, self.num_channels[0]))
@@ -253,18 +277,16 @@ PRESETS = {
 
 def make_unet(model_type: str, spatial_dims: int, in_channels: int, out_channels: int,
               remat: bool = False, quant: str | None = None) -> DiffusionModelUNet:
-    """The tiny / small / big presets of the JAX package. Only 2D is ported;
-    there is no rematerialisation and no quantised variant yet."""
+    """The tiny / small / big presets of the JAX package, 2D or 3D; there is
+    no rematerialisation and no quantised variant yet."""
     if remat:
         raise NotImplementedError("remat is not ported to the PyTorch UNet")
     if quant not in (None, "none"):
         raise NotImplementedError(f"quantized UNet ({quant!r}) is not ported")
-    if spatial_dims != 2:
-        raise NotImplementedError(f"{spatial_dims}D UNet is not ported (2D only)")
     if model_type not in PRESETS:
         raise ValueError(f"Do not recognise model type {model_type}")
-    return DiffusionModelUNet(in_channels=in_channels, out_channels=out_channels,
-                              **PRESETS[model_type])
+    return DiffusionModelUNet(spatial_dims=spatial_dims, in_channels=in_channels,
+                              out_channels=out_channels, **PRESETS[model_type])
 
 
 @torch.no_grad()

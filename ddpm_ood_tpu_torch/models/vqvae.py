@@ -1,0 +1,229 @@
+"""VQ-VAE (2D or 3D) with an EMA codebook, forward only, with monai-generative
+state_dict names.
+
+Port of ``ddpm_ood_tpu/models/vqvae.py`` (``ConvTransposeTorchLike``,
+``VQVAEResidualUnit``, ``Encoder``, ``Decoder``, ``EMAQuantizer``, ``VQVAE``)
+for scoring a latent diffusion model: the stage-2 API
+``encode_stage_2_inputs`` / ``decode_stage_2_outputs`` and ``reconstruct``.
+The EMA codebook update and the GAN training of stage 1 are not ported.
+
+Module names follow monai-generative's ``VQVAE``, so a reference ``.pth``
+loads with ``strict=True``: ``encoder.blocks.{b}`` and ``decoder.blocks.{b}``
+are flat lists of convolutions (weights at ``.conv``) and residual units
+(``.conv1.conv``, ``.conv2.conv``); the codebook and its EMA statistics are
+``quantizer.quantizer.{embedding.weight, ema_cluster_size, ema_w}``.
+``utils/convert.py:jax_vqvae_params_to_state_dict`` writes these keys from
+the JAX package's params.
+
+Layout: (B, C, *spatial) tensors, best in ``models.unet.memory_format``
+(channels-last). The decoder's transposed convolutions are
+``nn.ConvTranspose{2,3}d``, whose output size is the one the JAX package's
+``ConvTransposeTorchLike`` reproduces: (in - 1) * stride - 2 * padding +
+dilation * (kernel - 1) + output_padding + 1.
+
+Precision: on CUDA the caller runs the encoder and decoder under bf16
+autocast, as the JAX package runs them in bf16 on its accelerator. The
+quantizer always runs in fp32 with autocast off: its argmin over the
+codebook decides which code a latent becomes, and one flipped index changes
+a decoded region by a lot, not by rounding. The distances are
+|x|^2 - 2 x.e + |e|^2 in the JAX package's order, and ties go to the lowest
+index in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+_CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+
+
+class _Conv(nn.Module):
+    """A conv wrapped one level deep, for monai's ``.conv`` key segment."""
+
+    def __init__(self, conv: nn.Module):
+        super().__init__()
+        self.conv = conv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class VQVAEResidualUnit(nn.Module):
+    """relu(x + conv2(relu(conv1(x)))), 3x3(x3) convolutions, 'same' padding."""
+
+    def __init__(self, dims: int, channels: int, res_channels: int):
+        super().__init__()
+        self.conv1 = _Conv(_CONV[dims](channels, res_channels, 3, padding=1))
+        self.conv2 = _Conv(_CONV[dims](res_channels, channels, 3, padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(x + self.conv2(F.relu(self.conv1(x))))
+
+
+class Encoder(nn.Module):
+    """Per level: a strided conv (the level's (stride, kernel, dilation,
+    padding)) and ReLU, then ``num_res_layers`` residual units; last, a 3x3
+    conv to ``embedding_dim`` channels."""
+
+    def __init__(self, dims: int, in_channels: int, out_channels: int,
+                 num_channels: Sequence[int], num_res_channels: Sequence[int],
+                 num_res_layers: int, downsample_parameters: Sequence[Tuple[int, ...]]):
+        super().__init__()
+        blocks = []
+        ch = in_channels
+        for i, out_ch in enumerate(num_channels):
+            stride, kernel, dilation, pad = downsample_parameters[i]
+            blocks.append(_Conv(_CONV[dims](ch, out_ch, kernel, stride=stride,
+                                            dilation=dilation, padding=pad)))
+            blocks += [VQVAEResidualUnit(dims, out_ch, num_res_channels[i])
+                       for _ in range(num_res_layers)]
+            ch = out_ch
+        blocks.append(_Conv(_CONV[dims](ch, out_channels, 3, padding=1)))
+        self.blocks = nn.ModuleList(blocks)
+        self._relu_after = {i * (num_res_layers + 1) for i in range(len(num_channels))}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for b, block in enumerate(self.blocks):
+            x = block(x)
+            if b in self._relu_after:
+                x = F.relu(x)
+        return x
+
+
+class Decoder(nn.Module):
+    """A 3x3 conv and ReLU from ``embedding_dim`` channels, then per level (in
+    reverse): ``num_res_layers`` residual units and a transposed conv (the
+    level's (stride, kernel, dilation, padding, output_padding)), with a ReLU
+    after every transposed conv but the last."""
+
+    def __init__(self, dims: int, in_channels: int, out_channels: int,
+                 num_channels: Sequence[int], num_res_channels: Sequence[int],
+                 num_res_layers: int, upsample_parameters: Sequence[Tuple[int, ...]]):
+        super().__init__()
+        rev_ch = list(reversed(num_channels))
+        rev_res_ch = list(reversed(num_res_channels))
+        rev_up = list(reversed(upsample_parameters))
+        n = len(rev_ch)
+        blocks = [_Conv(_CONV[dims](in_channels, rev_ch[0], 3, padding=1))]
+        self._relu_after = {0}
+        for i in range(n):
+            blocks += [VQVAEResidualUnit(dims, rev_ch[i], rev_res_ch[i])
+                       for _ in range(num_res_layers)]
+            stride, kernel, dilation, pad, out_pad = rev_up[i]
+            last = i == n - 1
+            blocks.append(_Conv(_CONV_T[dims](
+                rev_ch[i], out_channels if last else rev_ch[i + 1], kernel, stride=stride,
+                padding=pad, output_padding=out_pad, dilation=dilation)))
+            if not last:
+                self._relu_after.add(len(blocks) - 1)
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        for b, block in enumerate(self.blocks):
+            z = block(z)
+            if b in self._relu_after:
+                z = F.relu(z)
+        return z
+
+
+class EMAQuantizer(nn.Module):
+    """The codebook (``embedding.weight``, (num_embeddings, embedding_dim))
+    and its EMA statistics (``ema_cluster_size``, ``ema_w``), loaded, not
+    updated: the EMA update belongs to stage-1 training, which is not ported."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, commitment_cost: float = 0.25):
+        super().__init__()
+        self.embedding_dim, self.commitment_cost = embedding_dim, commitment_cost
+        self.embedding = nn.Embedding(num_embeddings, embedding_dim)
+        self.register_buffer("ema_cluster_size", torch.zeros(num_embeddings))
+        self.register_buffer("ema_w", self.embedding.weight.data.clone())
+
+    def forward(self, z: torch.Tensor):
+        """z (B, C, *spatial) -> (quantized (z's shape and dtype), commitment
+        loss, indices (B, *spatial)), in fp32 with autocast off. The
+        quantized tensor is z + (e[idx] - z), the JAX package's
+        straight-through form, so its values round as JAX's do."""
+        with torch.autocast(z.device.type, enabled=False):
+            zl = z.movedim(1, -1)  # (B, *spatial, C): a view for channels-last z
+            flat = zl.reshape(-1, self.embedding_dim).float()
+            e = self.embedding.weight.float()
+            dist = (torch.sum(flat ** 2, dim=1, keepdim=True) - 2.0 * (flat @ e.t())
+                    + torch.sum(e ** 2, dim=1)[None, :])
+            idx = torch.argmin(dist, dim=1)
+            quantized = e[idx].view(zl.shape)
+            loss = self.commitment_cost * torch.mean((quantized - zl.float()) ** 2)
+            out = zl + (quantized.to(z.dtype) - zl)
+        return out.movedim(-1, 1), loss, idx.view(zl.shape[:-1])
+
+
+class _QuantizerWrapper(nn.Module):
+    """monai-generative's ``VQVAE.quantizer`` level, for the key prefix."""
+
+    def __init__(self, quantizer: EMAQuantizer):
+        super().__init__()
+        self.quantizer = quantizer
+
+    def forward(self, z: torch.Tensor):
+        return self.quantizer(z)
+
+
+class VQVAE(nn.Module):
+    """The stage-1 model of latent diffusion. Constructor arguments are the
+    keys of the reference's ``vqvae_config.json`` (``decay``, ``epsilon``,
+    ``dropout`` and ``ddp_sync`` are accepted for the file's sake: they act
+    only in training)."""
+
+    def __init__(
+        self,
+        spatial_dims: int = 2,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        num_res_layers: int = 3,
+        downsample_parameters: Sequence[Tuple[int, int, int, int]] = ((2, 4, 1, 1),) * 4,
+        upsample_parameters: Sequence[Tuple[int, int, int, int, int]] = ((2, 4, 1, 1, 0),) * 4,
+        num_channels: Sequence[int] = (128, 128, 128, 256),
+        num_res_channels: Sequence[int] = (128, 128, 128, 256),
+        num_embeddings: int = 256,
+        embedding_dim: int = 256,
+        decay: float = 0.99,
+        commitment_cost: float = 0.25,
+        epsilon: float = 1e-5,
+        dropout: float = 0.0,
+        ddp_sync: bool = True,
+    ):
+        super().__init__()
+        if spatial_dims not in (2, 3):
+            raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
+        self.spatial_dims = spatial_dims
+        self.encoder = Encoder(spatial_dims, in_channels, embedding_dim, num_channels,
+                               num_res_channels, num_res_layers, downsample_parameters)
+        self.decoder = Decoder(spatial_dims, embedding_dim, out_channels, num_channels,
+                               num_res_channels, num_res_layers, upsample_parameters)
+        self.quantizer = _QuantizerWrapper(
+            EMAQuantizer(num_embeddings, embedding_dim, commitment_cost))
+
+    def forward(self, images: torch.Tensor):
+        """(reconstruction, commitment loss)."""
+        quantized, loss, _ = self.quantizer(self.encoder(images))
+        return self.decoder(quantized), loss
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        return self.encoder(images)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
+
+    def encode_stage_2_inputs(self, images: torch.Tensor) -> torch.Tensor:
+        return self.quantizer(self.encoder(images))[0]
+
+    def decode_stage_2_outputs(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.quantizer(z)[0])
+
+    def reconstruct(self, images: torch.Tensor) -> torch.Tensor:
+        return self(images)[0]
+

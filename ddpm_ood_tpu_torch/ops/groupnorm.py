@@ -14,9 +14,9 @@ the rest (and x off a 16-byte boundary) take the one-block-per-group kernel
 not build or launch raises.
 On CUDA the kernel sits in a ``torch.autograd.Function`` whose backward is
 the VJP of the plain version, as in the JAX package.
-The UNet runs in ``torch.channels_last``, so its (B, C, H, W) activations
-permuted to (B, H, W, C) are already contiguous and reach the kernel without
-a copy.
+The UNet runs in ``torch.channels_last`` (``channels_last_3d`` in 3D), so
+its (B, C, *spatial) activations permuted to (B, *spatial, C) are already
+contiguous and reach the kernel without a copy.
 """
 
 from __future__ import annotations

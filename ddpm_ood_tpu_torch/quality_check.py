@@ -11,8 +11,16 @@ flags, ``--pinned`` settings, data and JSON schema. It draws the same images
 the port's ``Reconstruct`` once per sampler, and computes the AUROCs with the
 port's numpy ``ood/score.py``. Two OOD sets: "easy" checkerboards, and
 "hard" sinusoids just outside the training spectrum. The port draws its own
-initial weights and noise, so its AUROCs are held to ``compare_quality``'s
-band against an earlier result, not to equal numbers.
+noise, so its AUROCs are held to ``compare_quality``'s band against an
+earlier result, not to equal numbers.
+
+Initial weights: ``--pinned`` starts training from the JAX package's own
+init of the tiny UNet, ``make_ddpm_state(make_unet("tiny", 2, 1, 1),
+PRNGKey(2), (16, 16, 1))``, kept as ``assets/quality_init_tiny_seed2.npz``
+(written by ``python tests/test_torch_quality_init.py``, which also holds it
+equal to a fresh JAX draw), so the gate compares training from one init in
+both packages. Other runs draw ``jax_like_init_`` from torch seed 2. The
+JSON's ``config.init`` names which.
 
 Differences from the JAX script:
 - ``--device`` (default cuda, which raises without a card);
@@ -47,6 +55,8 @@ from pathlib import Path
 import numpy as np
 
 PINNED_SAMPLERS = "plms,dpm@25/1,ddim@25/1"
+# the JAX package's PRNGKey(2) init of the tiny UNet, the --pinned gate's start
+QUALITY_INIT = Path(__file__).resolve().parent / "assets" / "quality_init_tiny_seed2.npz"
 
 
 def make_dataset(root: Path, name: str, n: int, size: int, rng, kind: str = "in",
@@ -257,14 +267,16 @@ def main(argv=None) -> dict:
     ns = parse_args_train_ddpm([])
     vars(ns).update(common, training_ids=train_csv, n_epochs=args.epochs, eval_freq=10**9,
                     checkpoint_every=10**9, ema_decay=args.ema_decay)
+    init = QUALITY_INIT if args.pinned else None
     if args.checkpoint:
+        init = None
         run_dir = Path(ns.output_dir) / ns.model_name
         run_dir.mkdir(parents=True, exist_ok=True)
         shutil.copyfile(args.checkpoint, run_dir / "checkpoint.pth")
         timing = {"train_s": None}
     else:
         t0 = time.perf_counter()
-        trainer = DDPMTrainer(ns, device)
+        trainer = DDPMTrainer(ns, device, init_weights=init)
         trainer.train(ns)
         timing = {"train_s": round(time.perf_counter() - t0, 3)}
         del trainer
@@ -326,6 +338,10 @@ def main(argv=None) -> dict:
             "near_freq": args.near_freq, "n_eval": args.n_eval,
             "data_seed": 0, "train_seed": 2, "recon_groups": args.recon_groups,
             "checkpoint": args.checkpoint,
+            "init": (None if args.checkpoint else
+                     f"ddpm_ood_tpu_torch/assets/{QUALITY_INIT.name} (the JAX package's "
+                     "make_ddpm_state, PRNGKey(2))" if init else
+                     "jax_like_init_ (torch.Generator seed 2)"),
         },
         "backend": device.type,
         "device": card_name_and_power() if device.type == "cuda" else "cpu",

@@ -18,9 +18,17 @@ Public edges keep the JAX layout, images and noise as (B, *spatial, C) and
 (K, B, *spatial, C); the UNet itself takes (N, C, *spatial) in channels_last,
 which is a free permute of the same memory.
 
-``metrics_tail`` is the port of the JAX program's ``_score_body`` for 2D
-pixel-space models: per-(lane, image) MSE, LPIPS, optionally 1 - SSIM and
-the lane-sum of squared residuals (the error maps), all in fp32.
+``metrics_tail`` is the port of the JAX program's ``_score_body``:
+per-(lane, image) MSE, LPIPS, optionally 1 - SSIM and the lane-sum of
+squared residuals (the error maps), all in fp32, in 2D and 3D.
+
+Latent diffusion: with ``encode_fn`` / ``decode_fn`` (the trainer's frozen
+VQ-VAE) and ``latent_pad``, a batch runs encode -> pad -> sweep -> un-pad
+-> decode -> / b_scale -> clip -> metrics, the JAX program's order. The JAX
+package decodes a lane group's K*B latents inside one compiled program;
+eager decoding of K*B volumes at once would hold them all, so the port
+decodes one lane (B samples) at a time and scores it as it comes, against
+LPIPS taps of the images computed once. The ELBO terms stay in latent space.
 ``score_elbo`` adds one UNet call per lane group at each lane's own start
 point and noise, and the variational-bound term (``diffusion/elbo.py``).
 """
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -40,7 +49,9 @@ from ..diffusion.elbo import elbo_terms_from_model
 from ..diffusion.plms import (plms_init_state, plms_reference_exact_sweep, plms_step,
                               pndm_start_points, pndm_timesteps)
 from ..diffusion.schedules import NoiseSchedule, add_noise, lanes
+from ..losses.lpips import PerceptualLoss
 from ..ops.ssim import ssim_distance
+from ..utils.padding import pad_torch_style, unpad_torch_style
 
 # model_fn(x (N, C, *spatial), t (N,) int) -> fp32 (N, C, *spatial)
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -222,6 +233,15 @@ class ReconProgram:
     score_elbo: bool = False
     score_ssim: bool = False
     score_error_maps: bool = False
+    # latent diffusion: encode_fn(images (B, *spatial, C)) -> (B, *latent, E)
+    # and decode_fn(latents (N, *latent, E)) -> (N, *spatial, C), the frozen
+    # VQ-VAE's stage-2 hooks (None in pixel space); latent_pad a torch-style
+    # pad tuple; latent_sample_shape the (*latent, E) the UNet is built for,
+    # checked against each encoded batch
+    encode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    latent_pad: Optional[Tuple[int, ...]] = None
+    latent_sample_shape: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if self.sampler in ("ddim", "dpm"):
@@ -262,31 +282,69 @@ class ReconProgram:
             return torch.from_numpy(arr).to(self.device)
         return torch.randn(shape, generator=generator, device=self.device)
 
-    def _elbo(self, images: torch.Tensor, noise: torch.Tensor,
+    def _encode(self, images: torch.Tensor) -> torch.Tensor:
+        """The UNet's input space: the images, encoded and padded."""
+        x = images if self.encode_fn is None else self.encode_fn(images)
+        if self.latent_pad:
+            x = pad_torch_style(x, self.latent_pad)
+        if self.latent_sample_shape is not None and \
+                tuple(x.shape[1:]) != tuple(self.latent_sample_shape):
+            raise ValueError(f"encoded batch {tuple(x.shape)} does not match the latent sample "
+                             f"shape {tuple(self.latent_sample_shape)}")
+        return x
+
+    def _score(self, images: torch.Tensor, recon: torch.Tensor):
+        """``metrics_tail``'s outputs for the sweep's (K, B, *latent, E)
+        output: un-padded, then decoded and scored a lane at a time in latent
+        diffusion, else scored at once."""
+        if self.latent_pad:
+            recon = unpad_torch_style(recon, self.latent_pad, images.dim() - 2)
+        if self.decode_fn is None:
+            return metrics_tail(images, recon, self.b_scale, self.perceptual_fn,
+                                self.score_ssim, self.score_error_maps)
+        perceptual_fn = self.perceptual_fn
+        if isinstance(perceptual_fn, PerceptualLoss):  # the images' taps once for every lane
+            with torch.autocast(images.device.type, enabled=False):
+                perceptual_fn = functools.partial(
+                    perceptual_fn, y_features=perceptual_fn.image_features(images))
+        parts = []
+        for lane in recon:
+            decoded = self.decode_fn(lane)
+            parts.append(metrics_tail(
+                images, decoded[None], self.b_scale, perceptual_fn, self.score_ssim,
+                self.score_error_maps))
+        mse, perc, _, ssim_d, err = zip(*parts)
+        return (torch.cat(mse), torch.cat(perc), parts[-1][2],
+                torch.cat(ssim_d) if self.score_ssim else None,
+                sum(err) if self.score_error_maps else None)
+
+    def _elbo(self, x: torch.Tensor, noise: torch.Tensor,
               t_starts: torch.Tensor) -> torch.Tensor:
         """(K, B) bits/dim: one UNet call on every lane's own x_t, the sample
-        its trajectory starts from; the terms in fp32 with autocast off."""
+        its trajectory starts from (in latent space for latent diffusion);
+        the terms in fp32 with autocast off."""
         k, b = noise.shape[:2]
-        x_t = add_noise(self.sched, (images * self.b_scale)[None], noise, t_starts)
+        x_t = add_noise(self.sched, (x * self.b_scale)[None], noise, t_starts)
         t_flat = t_starts.repeat_interleave(b)
         out = _model_to_lane_major(self._model(_lane_major_to_model(x_t), t_flat), k)
-        with torch.autocast(images.device.type, enabled=False):
+        with torch.autocast(x.device.type, enabled=False):
             return elbo_terms_from_model(self.sched, out.flatten(0, 1).float(),
                                          x_t.flatten(0, 1), noise.flatten(0, 1),
                                          t_flat).view(k, b)
 
     def __call__(self, images, generator: Optional[torch.Generator] = None):
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        noise_full = self._noise((len(self.t_starts),) + tuple(images.shape), generator)
         autocast = (torch.autocast(self.device.type, dtype=self.autocast_dtype)
                     if self.autocast_dtype is not None else contextlib.nullcontext())
+        with torch.no_grad(), autocast:
+            x = self._encode(images)
+        noise_full = self._noise((len(self.t_starts),) + tuple(x.shape), generator)
         if self.sampler == "plms_ref":
             with torch.no_grad(), autocast:
                 recon = plms_reference_exact_sweep(
-                    self.sched, self._sample_model, images, noise_full, self.timesteps_desc,
+                    self.sched, self._sample_model, x, noise_full, self.timesteps_desc,
                     self.t_starts, self.num_inference_steps, self.b_scale)
-                mse, perc, self.last_preview, _, _ = metrics_tail(
-                    images, recon, self.b_scale, self.perceptual_fn)
+                mse, perc, self.last_preview, _, _ = self._score(images, recon)
             return self.t_starts, mse, perc
         sweep = SWEEPS[self.sampler]
         mses, percs, elbos, ssims, err_sum, offset = [], [], [], [], None, 0
@@ -294,17 +352,15 @@ class ReconProgram:
             for ts_desc, t_starts in self._groups:
                 k = t_starts.shape[0]
                 noise = noise_full[offset: offset + k]
-                recon = sweep(self.sched, self._model, images, noise, ts_desc, t_starts,
+                recon = sweep(self.sched, self._model, x, noise, ts_desc, t_starts,
                               self.num_inference_steps, self.b_scale)
                 offset += k
-                mse, perc, preview, ssim_d, err = metrics_tail(
-                    images, recon, self.b_scale, self.perceptual_fn, self.score_ssim,
-                    self.score_error_maps)
+                mse, perc, preview, ssim_d, err = self._score(images, recon)
                 mses.append(mse)
                 percs.append(perc)
                 ssims.append(ssim_d)
                 if self.score_elbo:
-                    elbos.append(self._elbo(images, noise, t_starts))
+                    elbos.append(self._elbo(x, noise, t_starts))
                 if err is not None:  # lane sums, so the mean over groups is exact
                     err_sum = err if err_sum is None else err_sum + err
         self.last_preview = preview  # from the highest-start group

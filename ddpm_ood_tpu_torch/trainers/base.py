@@ -1,33 +1,42 @@
 """BaseTrainer: model, schedule, checkpoint and training-state wiring.
 
 Port of ``ddpm_ood_tpu/trainers/base.py`` for one process on one device:
-the UNet preset, the noise schedule, checkpoint discovery and loading
-(``--use_ema`` included) for scoring, and for training (``training=True``)
+the UNet preset (2D or 3D), the frozen VQ-VAE of a latent diffusion model
+(``--vqvae_checkpoint``, a ``.pth`` with ``vqvae_config.json`` beside it;
+the UNet then works on ``embedding_dim`` channels; none in pixel space), the
+latent pad, the stage-2 hooks ``encode_fn`` / ``decode_fn``, the noise
+schedule, checkpoint discovery and loading (``--use_ema`` included) for
+scoring, and for training (``training=True``)
 the state the JAX package keeps in its ``TrainState``: Adam, the weight-EMA
 slot, ``start_epoch``, ``global_step`` (counted in images, as the
 reference), ``best_loss`` (1000.0 on a fresh run), resume from the
 checkpoint ``find_checkpoint`` picks, and ``save_checkpoint`` in the
 reference schema. There is no mesh and no FSDP.
 
-Precision: on CUDA the UNet computes in bf16 (``torch.autocast``) with its
-parameters in fp32 and GroupNorm statistics in fp32, as the JAX package
-does on its accelerator; on the CPU everything is fp32. TF32 is switched off
+Precision: on CUDA the UNet and the VQ-VAE compute in bf16
+(``torch.autocast``) with their parameters in fp32 and GroupNorm statistics
+and the codebook search in fp32, as the JAX package does on its
+accelerator; on the CPU everything is fp32. TF32 is switched off
 for fp32 matmuls and convolutions alike, so fp32 means fp32.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from ..diffusion.schedules import make_schedule
-from ..models.unet import jax_like_init_, make_unet
+from ..models.unet import jax_like_init_, make_unet, memory_format
+from ..models.vqvae import VQVAE
 from ..train.ddpm import DDPMTrainStep
 from ..utils import checkpoint as ckpt
+from ..utils.convert import jax_unet_params_to_state_dict, load_params_npz
+from ..utils.padding import padded_shape
 
 log = logging.getLogger(__name__)
 
@@ -61,7 +70,11 @@ def refuse_flags(args, refused: Sequence[Tuple[str, bool, str]]) -> None:
 
 
 class BaseTrainer:
-    def __init__(self, args, device: torch.device, training: bool = False):
+    def __init__(self, args, device: torch.device, training: bool = False,
+                 init_weights: Optional[Path] = None):
+        """`init_weights` (training only): an npz of JAX-tree UNet params
+        (``utils.convert.load_params_npz``) to start from, in place of
+        ``jax_like_init_``'s draw from ``--seed``."""
         log.info(f"Arguments: {args}")
         self.device = device
         self.spatial_dimension = int(args.spatial_dimension)
@@ -69,10 +82,25 @@ class BaseTrainer:
         roi = getattr(args, "image_roi", None)  # parsed by ast.literal_eval
         self.image_roi = tuple(roi) if roi else None
         self.is_grayscale = bool(getattr(args, "is_grayscale", False))
-        self.ddpm_channels = 1 if self.is_grayscale else 3
         self.autocast_dtype = torch.bfloat16 if device.type == "cuda" else None
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+        # frozen VQ-VAE (latent diffusion), or none (pixel space)
+        self.vqvae_checkpoint = getattr(args, "vqvae_checkpoint", None)
+        if self.vqvae_checkpoint:
+            self.vqvae_config, state = ckpt.load_vqvae_checkpoint(self.vqvae_checkpoint)
+            self.vqvae = VQVAE(**self.vqvae_config)
+            self.vqvae.load_state_dict(state, strict=True)
+            self.vqvae = self.vqvae.to(
+                device, memory_format=memory_format(self.spatial_dimension)).eval()
+            log.info(f"Loaded VQ-VAE {self.vqvae_checkpoint} with config {self.vqvae_config}")
+            self.ddpm_channels = int(self.vqvae_config["embedding_dim"])
+        else:
+            self.vqvae, self.vqvae_config = None, None
+            self.ddpm_channels = 1 if self.is_grayscale else 3
+        pad = getattr(args, "latent_pad", None)  # parsed by ast.literal_eval
+        self.latent_pad = tuple(int(p) for p in pad) if pad else None
 
         self.unet = make_unet(
             args.model_type, self.spatial_dimension, self.ddpm_channels, self.ddpm_channels,
@@ -95,8 +123,13 @@ class BaseTrainer:
         epoch = getattr(args, "ddpm_checkpoint_epoch", None)
         path = ckpt.find_checkpoint(self.run_dir, int(epoch) if epoch else None)
         if training:
-            jax_like_init_(self.unet, torch.Generator().manual_seed(int(args.seed)))
-            self.unet = self.unet.to(device, memory_format=torch.channels_last)
+            if init_weights is not None:
+                self.unet.load_state_dict(
+                    jax_unet_params_to_state_dict(load_params_npz(init_weights)), strict=True)
+                log.info(f"Initial weights from {init_weights}")
+            else:
+                jax_like_init_(self.unet, torch.Generator().manual_seed(int(args.seed)))
+            self.unet = self.unet.to(device, memory_format=memory_format(self.spatial_dimension))
             self.step = DDPMTrainStep(
                 model=self.unet, sched=self.sched, b_scale=self.b_scale,
                 learning_rate=float(args.learning_rate),
@@ -111,7 +144,8 @@ class BaseTrainer:
         else:
             if path is not None:
                 self._load(path)
-            self.unet = self.unet.to(device, memory_format=torch.channels_last).eval()
+            self.unet = self.unet.to(
+                device, memory_format=memory_format(self.spatial_dimension)).eval()
         n_params = sum(p.numel() for p in self.unet.parameters())
         log.info(f"{n_params:,} model parameters on {device}")
 
@@ -158,6 +192,36 @@ class BaseTrainer:
             payload["ema_model_state_dict"] = dict(self.step.ema)
         return ckpt.write_checkpoint(self.run_dir / f"{name}.pth", payload)
 
+    def _latent_sample_shape(self) -> Tuple[int, ...]:
+        """(*spatial, C) of the tensor the UNet consumes: the image size, over
+        the VQ-VAE's total stride, plus the latent pad."""
+        size = self.image_size or 32
+        spatial = (size,) * self.spatial_dimension
+        if self.image_roi and not self.image_size:
+            spatial = tuple(self.image_roi)
+        if self.vqvae_config is not None:
+            factor = math.prod(p[0] for p in self.vqvae_config["downsample_parameters"])
+            spatial = tuple(max(1, s // factor) for s in spatial)
+        if self.latent_pad:
+            spatial = padded_shape(spatial, self.latent_pad)
+        return spatial + (self.ddpm_channels,)
+
+    @property
+    def encode_fn(self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """images (B, *spatial, C) -> quantized latents (B, *latent, E), or
+        None in pixel space."""
+        if self.vqvae_config is None:
+            return None
+        return lambda x: self.vqvae.encode_stage_2_inputs(x.movedim(-1, 1)).movedim(1, -1)
+
+    @property
+    def decode_fn(self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """latents (N, *latent, E) -> re-quantized and decoded (N, *spatial, C),
+        or None in pixel space."""
+        if self.vqvae_config is None:
+            return None
+        return lambda z: self.vqvae.decode_stage_2_outputs(z.movedim(-1, 1)).movedim(1, -1)
+
     def model_fn(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """UNet forward on (N, C, *spatial) channels_last input."""
+        """UNet forward on (N, C, *spatial) channels-last input."""
         return self.unet(x, t)

@@ -52,13 +52,13 @@ def refuse_unported_train_flags(args) -> None:
 
 
 class DDPMTrainer(BaseTrainer):
-    def __init__(self, args, device: torch.device):
+    def __init__(self, args, device: torch.device, init_weights=None):
         refuse_unported_train_flags(args)
         grad_accum = int(args.grad_accum_steps or 1)
         if grad_accum > 1 and args.batch_size % grad_accum != 0:
             raise ValueError(f"--batch_size {args.batch_size} is not divisible by "
                              f"--grad_accum_steps {grad_accum}")
-        super().__init__(args, device, training=True)
+        super().__init__(args, device, training=True, init_weights=init_weights)
         self.logger_train = Logger(self.run_dir / "train")
         self.logger_val = Logger(self.run_dir / "val")
         self.train_loader, self.val_loader = get_training_data_loader(

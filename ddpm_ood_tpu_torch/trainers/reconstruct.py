@@ -1,15 +1,16 @@
 """Reconstruction pipeline: the OOD scoring workload on one device.
 
 Port of ``ddpm_ood_tpu/trainers/reconstruct.py`` for the slice the port
-serves: 2D pixel-space models with Gaussian noise, and every sampler of the
-JAX CLI (``--sampler`` plms, plms_ref, ddim or dpm). It needs a checkpoint
+serves: 2D and 3D models in pixel space or in the latent space of a frozen
+VQ-VAE (``--vqvae_checkpoint``, ``--latent_pad``), with Gaussian noise, and
+every sampler of the JAX CLI (``--sampler`` plms, plms_ref, ddim or dpm). It needs a checkpoint
 (found before the model is built), sweeps every start timestep of every
 image, and writes per-(image, t_start) rows
 {filename, type, t, perceptual_difference, mse[, elbo][, ssim_distance]} to
 ``ood/results_{val,in,<name>[_vflip|_hflip]}.csv`` in the JAX package's
 format (a leading index column), which both packages' ``ood_detection`` read.
 ``perceptual_difference`` is LPIPS (``losses/lpips.py``, weights from
-``LPIPS_WEIGHTS_NPZ``); ``--score_elbo`` adds ``elbo`` (the variational
+``LPIPS_WEIGHTS_NPZ``; fake 3D on volumes); ``--score_elbo`` adds ``elbo`` (the variational
 bound's term at each start point, bits/dim), ``--score_ssim`` adds
 ``ssim_distance`` and
 ``--save_error_maps`` writes ``ood/error_maps/<dataset>/<stem>.npy``. The
@@ -58,18 +59,17 @@ def refuse_unported_flags(args) -> None:
         ("--aot_cache", bool(flag("aot_cache")), "a TPU-only feature"),
         ("--profile_dir", bool(flag("profile_dir")), ""),
         ("--resume", bool(flag("resume", 0)), ""),
-        ("--spatial_dimension", int(flag("spatial_dimension", 2)) != 2, "2D only"),
-        ("--vqvae_checkpoint", bool(flag("vqvae_checkpoint")), "latent diffusion"),
-        ("--latent_pad", bool(flag("latent_pad")), "latent diffusion"),
         ("--remat", bool(flag("remat", 0)), ""),
     ])
 
 
-def resolve_recon_groups(value) -> int:
-    """'auto' -> 16 lane groups (2D): the JAX package's choice, tuned on a
-    TPU and not yet re-measured on a GPU. Integers pass through."""
+def resolve_recon_groups(value, spatial_dimension: int = 2) -> int:
+    """'auto' -> 16 lane groups in 2D, 3 in 3D: the JAX package's choice,
+    tuned on a TPU and not measured on a GPU. Integers pass through."""
     s = str("auto" if value is None else value).strip().lower()
-    return 16 if s == "auto" else int(s)
+    if s != "auto":
+        return int(s)
+    return 3 if int(spatial_dimension) == 3 else 16
 
 
 def _stem(filename: str) -> str:
@@ -139,8 +139,9 @@ class Reconstruct(BaseTrainer):
         self.save_error_maps = bool(getattr(args, "save_error_maps", 0))
         self.columns = (COLUMNS + ((ELBO_COLUMN,) if self.score_elbo else ())
                         + ((SSIM_COLUMN,) if self.score_ssim else ()))
-        # LPIPS in fp32 on the scoring device, shared by every program
-        self.perceptual = PerceptualLoss().to(device).eval()
+        # LPIPS in fp32 on the scoring device (fake 3D on volumes), shared by
+        # every program
+        self.perceptual = PerceptualLoss(spatial_dims=self.spatial_dimension).to(device).eval()
         if self.save_error_maps:
             log.info("--save_error_maps: writing each map as .npy; the port draws no .png "
                      "(matplotlib is not a dependency of the port)")
@@ -163,10 +164,14 @@ class Reconstruct(BaseTrainer):
                 sched=self.sched, model_fn=self.model_fn, device=self.device,
                 num_inference_steps=int(a.num_inference_steps),
                 inference_skip_factor=int(skip_factor), b_scale=self.b_scale,
-                num_groups=resolve_recon_groups(getattr(a, "recon_groups", "auto")),
+                num_groups=resolve_recon_groups(getattr(a, "recon_groups", "auto"),
+                                                self.spatial_dimension),
                 sampler=getattr(a, "sampler", "plms"), autocast_dtype=self.autocast_dtype,
                 perceptual_fn=self.perceptual, score_elbo=self.score_elbo,
                 score_ssim=self.score_ssim, score_error_maps=self.save_error_maps,
+                encode_fn=self.encode_fn, decode_fn=self.decode_fn, latent_pad=self.latent_pad,
+                # the loader resizes to image_size, so the latent shape is known
+                latent_sample_shape=self._latent_sample_shape() if self.image_size else None,
             )
         return self._programs[skip_factor]
 

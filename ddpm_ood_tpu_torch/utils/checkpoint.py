@@ -8,6 +8,11 @@ optimizer_state_dict (torch Adam's own ``state_dict()``), best_loss} plus
 ``utils/checkpoint.py:find_checkpoint``: an explicit epoch, else the rolling
 file, else the newest periodic one.
 
+A latent diffusion model's frozen VQ-VAE (``--vqvae_checkpoint``) is a
+``.pth`` of the same schema whose ``model_state_dict`` holds
+monai-generative ``VQVAE`` keys, with the run's ``vqvae_config.json`` (the
+model's constructor arguments) beside it: ``load_vqvae_checkpoint``.
+
 The JAX package's own checkpoints are Orbax directories. Reading them needs
 orbax, which the port does not use; convert them on a host with JAX
 (``utils.convert.jax_unet_params_to_state_dict``) and save a ``.pth``.
@@ -15,10 +20,11 @@ orbax, which the port does not use; convert them on a host with JAX
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -89,3 +95,25 @@ def save_checkpoint(path: str | Path, model_state_dict: dict, epoch: int = 0,
     if ema_model_state_dict is not None:
         payload["ema_model_state_dict"] = ema_model_state_dict
     write_checkpoint(path, payload)
+
+
+VQVAE_CONFIG = "vqvae_config.json"
+
+
+def load_vqvae_checkpoint(path: str | Path) -> Tuple[dict, dict]:
+    """(config, state_dict) of a VQ-VAE checkpoint: the ``vqvae_config.json``
+    beside `path` (list-valued entries as tuples) and the ``.pth``'s
+    ``model_state_dict`` (or the whole file, for a bare state_dict)."""
+    path = Path(path)
+    cfg_path = path.parent / VQVAE_CONFIG
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"Cannot find VQ-VAE checkpoint {path} (the port reads a .pth; convert an Orbax "
+            "directory with ddpm_ood_tpu_torch.utils.convert.jax_vqvae_params_to_state_dict)")
+    if not cfg_path.is_file():
+        raise FileNotFoundError(f"Cannot find VQ-VAE config {cfg_path}")
+    config = {k: tuple(tuple(x) if isinstance(x, list) else x for x in v)
+              if isinstance(v, list) else v
+              for k, v in json.loads(cfg_path.read_text()).items()}
+    payload = load_checkpoint(path)
+    return config, payload.get("model_state_dict", payload)

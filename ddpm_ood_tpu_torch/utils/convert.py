@@ -1,8 +1,11 @@
-"""Convert the JAX package's UNet and LPIPS params into the port's state_dicts.
+"""Convert the JAX package's UNet, VQ-VAE and LPIPS params into the port's
+state_dicts.
 
 A port of the flax -> torch direction of
 ``ddpm_ood_tpu/utils/convert_torch.py`` (``flax_to_torch_unet``,
-``_module_spec``, ``_to_torch``), numpy only. It does not import
+``flax_to_torch_vqvae``, ``_module_spec``, ``_vqvae_plan``, ``_to_torch``),
+numpy only. Conv kernels go from (*k, I, O) to (O, I, *k) in 2D and 3D
+alike (HWIO -> OIHW, DHWIO -> OIDHW). It does not import
 ``ddpm_ood_tpu.utils``, whose package init needs JAX.
 
 Input: the UNet params as a nested mapping of arrays (``{"conv_in":
@@ -11,7 +14,8 @@ for example an Orbax checkpoint's ``model_state_dict`` restored and turned
 into numpy on a host with JAX. Output: a flat {key: fp32 tensor} dict with
 monai-generative names, which ``DiffusionModelUNet.load_state_dict`` takes
 with ``strict=True``. ``jax_lpips_params_to_state_dict`` does the same for
-the LPIPS params that the JAX package's ``save_lpips_npz`` writes.
+the LPIPS params that the JAX package's ``save_lpips_npz`` writes, and
+``jax_vqvae_params_to_state_dict`` for a VQ-VAE's params and EMA codebook.
 """
 
 from __future__ import annotations
@@ -80,6 +84,11 @@ def _to_torch(t: np.ndarray, kind: str) -> np.ndarray:
     t = np.asarray(t)
     if kind == "conv" and t.ndim > 1:
         return np.transpose(t, (t.ndim - 1, t.ndim - 2) + tuple(range(t.ndim - 2)))  # (*k, I, O) -> (O, I, *k)
+    if kind == "convtranspose" and t.ndim > 1:
+        # the JAX package's lhs-dilated conv kernel (*k, I, O) holds the taps
+        # of torch's ConvTranspose (I, O, *k) spatially flipped
+        t = t[(slice(None, None, -1),) * (t.ndim - 2)]
+        return np.transpose(t, (t.ndim - 2, t.ndim - 1) + tuple(range(t.ndim - 2)))
     if kind == "linear" and t.ndim == 2:
         return t.T  # (I, O) -> (O, I)
     return t
@@ -102,6 +111,79 @@ def jax_unet_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(p for p in (prefix, torch_sub, _LEAF_NAMES[kind][leaf]) if p)
             arr = np.ascontiguousarray(_to_torch(value, kind), dtype=np.float32)
             out[key] = torch.from_numpy(arr)
+    return out
+
+
+def _vqvae_plan(params: Mapping) -> List[Tuple[str, str, str, str]]:
+    """[(side, flax module path, torch key prefix, kind)] for every conv of
+    the JAX VQ-VAE's params, in monai-generative's flat ``blocks`` layout.
+    The encoder's levels each open with a strided conv (``Conv_{i}``) and
+    its residual units follow; a last conv maps to the embedding. The
+    decoder opens with a conv, then each level's residual units and its
+    transposed conv."""
+    def num(name: str) -> int:
+        return int(name.rsplit("_", 1)[1])
+
+    plan = []
+    for side in ("encoder", "decoder"):
+        mods = params[side]
+        convs = sorted((n for n in mods if n.startswith("Conv_")), key=num)
+        res = sorted((n for n in mods if "ResidualUnit" in n), key=num)
+        trans = sorted((n for n in mods if "ConvTranspose" in n), key=num)
+        n_levels = len(convs) - 1 if side == "encoder" else len(trans)
+        r = len(res) // max(n_levels, 1)
+        first_res = 1  # block index of a level's first residual unit, past its opening conv
+        if side == "encoder":
+            plan += [(side, c, f"{side}.blocks.{i * (r + 1)}.conv", "conv")
+                     for i, c in enumerate(convs)]
+        else:
+            plan.append((side, convs[0], f"{side}.blocks.0.conv", "conv"))
+            plan += [(side, t, f"{side}.blocks.{1 + i * (r + 1) + r}.conv", "convtranspose")
+                     for i, t in enumerate(trans)]
+        for k, unit in enumerate(res):
+            level, j = divmod(k, max(r, 1))
+            b = level * (r + 1) + first_res + j
+            plan += [(side, f"{unit}/Conv_0", f"{side}.blocks.{b}.conv1.conv", "conv"),
+                     (side, f"{unit}/Conv_1", f"{side}.blocks.{b}.conv2.conv", "conv")]
+    return plan
+
+
+# the JAX quantizer's "ema" leaves -> monai-generative's keys
+_QUANTIZER_KEYS = {
+    "embedding": "quantizer.quantizer.embedding.weight",
+    "cluster_size": "quantizer.quantizer.ema_cluster_size",
+    "embed_avg": "quantizer.quantizer.ema_w",
+}
+
+
+def jax_vqvae_params_to_state_dict(params: Mapping, ema: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX VQ-VAE's ``params`` and ``ema`` collections -> the port's fp32
+    state_dict in monai-generative's keys, which ``models.vqvae.VQVAE``
+    takes with ``strict=True`` (and so does a reference ``VQVAE``)."""
+    out: Dict[str, np.ndarray] = {}
+    for side, path, prefix, kind in _vqvae_plan(params):
+        node = params[side]
+        for part in path.split("/"):
+            node = node[part]
+        out[f"{prefix}.weight"] = _to_torch(node["kernel"], kind)
+        out[f"{prefix}.bias"] = np.asarray(node["bias"])
+    for leaf, key in _QUANTIZER_KEYS.items():
+        out[key] = np.asarray(ema["quantizer"][leaf])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def load_params_npz(path) -> dict:
+    """A params tree saved flat in an npz, one array per "/"-joined path
+    ("down_0_res_0/conv1/kernel" -> tree["down_0_res_0"]["conv1"]["kernel"]),
+    as nested dicts of numpy arrays."""
+    out: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(data[key])
     return out
 
 

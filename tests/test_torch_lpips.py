@@ -10,6 +10,7 @@ different orders):
 - AlexNet taps: atol 2e-5 (4.3e-6 observed; taps reach ~3 after conv0).
 - LPIPS distances: atol 1e-6 on values ~0.04 (7.5e-9 observed): the taps
   are unit-normalized before they are differenced.
+- fake-3D volumes (means of slice distances): atol 1e-6, as the distances.
 - padding and weight conversion: exact.
 """
 
@@ -23,7 +24,7 @@ import torch
 
 from ddpm_ood_tpu.losses import lpips as jl
 from ddpm_ood_tpu_torch.losses import lpips as pl
-from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict
+from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict, load_params_npz
 
 TAP_ATOL, DIST_ATOL = 2e-5, 1e-6
 
@@ -99,6 +100,56 @@ def test_perceptual_loss_pads_and_scores_lanes_like_jax(jax_params, port, channe
         port(torch.from_numpy(x), torch.from_numpy(recon[..., :8, :]))
 
 
+@pytest.fixture(scope="module")
+def shared_npz(jax_params, tmp_path_factory):
+    """One LPIPS npz that both packages read, written by the JAX package."""
+    path = str(tmp_path_factory.mktemp("lpips") / "lpips.npz")
+    jl.save_lpips_npz(jax_params, path)
+    return path
+
+
+@pytest.mark.parametrize("average_views,drop_ratio", [(False, 0.0), (True, 0.0), (False, 0.5)],
+                         ids=["last_view", "average_views", "drop_half"])
+def test_fake_3d_perceptual_loss_matches_jax(shared_npz, average_views, drop_ratio):
+    """(2, 12, 10, 8, 1) volumes (a different size per axis, so a wrong view
+    permutation shows), 2 lanes of reconstructions; the port computes only
+    the last view unless average_views asks for all three."""
+    x, _ = _pair((2, 12, 10, 8, 1), seed=40)
+    recon = np.random.default_rng(41).uniform(size=(2,) + x.shape).astype(np.float32)
+    jloss = jl.PerceptualLoss(dimensions=3, is_fake_3d=True, weights_path=shared_npz,
+                              average_views=average_views, drop_ratio=drop_ratio)
+    want = np.stack([np.asarray(jloss(jnp.asarray(x), jnp.asarray(r))) for r in recon])
+    port3d = pl.PerceptualLoss(weights_path=shared_npz, spatial_dims=3,
+                               average_views=average_views, drop_ratio=drop_ratio)
+    slices = []
+    port3d.lpips.net.conv0.register_forward_hook(lambda m, i, o: slices.append(o.shape[0]))
+    got = port3d(torch.from_numpy(x), torch.from_numpy(recon))
+    assert got.shape == (2, 2) and (got > 0).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=DIST_ATOL, rtol=0)
+    # the images' slices once, then both lanes': Z slices only, unless averaging
+    per_view = [12, 10, 8] if average_views else [8]
+    keep = [max(1, int(n * (1 - drop_ratio))) for n in per_view]
+    assert slices == [n * f for n in keep for f in (2, 4)]
+
+
+@pytest.mark.parametrize("dims,average_views", [(2, False), (3, False), (3, True)],
+                         ids=["2d", "3d_last_view", "3d_average_views"])
+def test_image_features_passed_in_give_the_same_scores(shared_npz, dims, average_views):
+    """The latent scoring tail computes the images' taps once and scores
+    each decoded lane against them: the scores of one call on every lane
+    (DIST_ATOL: a different batch may sum the convolutions differently)."""
+    x, _ = _pair((2,) + (12, 10, 8)[:dims] + (1,), seed=42)
+    recon = torch.from_numpy(np.random.default_rng(43).uniform(size=(3,) + x.shape)
+                             .astype(np.float32))
+    loss = pl.PerceptualLoss(weights_path=shared_npz, spatial_dims=dims,
+                             average_views=average_views)
+    x = torch.from_numpy(x)
+    feats = loss.image_features(x)
+    assert len(feats) == (3 if average_views else 1)
+    per_lane = torch.stack([loss(x, r, y_features=feats) for r in recon])
+    torch.testing.assert_close(per_lane, loss(x, recon), rtol=0, atol=DIST_ATOL)
+
+
 @pytest.mark.parametrize("size", [16, 28, 31, 33])
 def test_pad_to_min_32_matches_jax(size):
     x, _ = _pair((2, size, size + 3, 1), seed=size)
@@ -115,7 +166,7 @@ def test_npz_round_trip(jax_params, tmp_path, monkeypatch):
     through LPIPS_WEIGHTS_NPZ as the scoring CLI finds it."""
     path = str(tmp_path / "lpips.npz")
     jl.save_lpips_npz(jax_params, path)
-    tree = pl.load_lpips_npz(path)
+    tree = load_params_npz(path)
     assert tree["params"]["net"]["conv0"]["kernel"].shape == (11, 11, 3, 64)
     assert tree["params"]["lin0"].shape == (64, 1)
     want = jax_lpips_params_to_state_dict(jax_params)

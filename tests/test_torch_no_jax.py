@@ -9,7 +9,9 @@ CPU without launching a kernel, ``python -m ddpm_ood_tpu_torch.ood_detection``
 prints the AUROCs of the scoring CLI's CSVs, ``python -m
 ddpm_ood_tpu_torch.quality_check --device=cpu`` trains, scores with DPM-Solver++
 and the ELBO, and prints its JSON, and building the CUDA kernels where there
-is no nvcc raises KernelBuildError instead of returning.
+is no nvcc raises KernelBuildError instead of returning. The same holds for
+scoring a 3D latent diffusion model (``--spatial_dimension=3
+--vqvae_checkpoint --latent_pad``) with fake-3D LPIPS, SSIM and error maps.
 """
 
 import json
@@ -131,3 +133,81 @@ def test_port_imports_and_runs_without_jax(tmp_path):
                           "hard_mse+elbo"}
     assert all(0.0 <= task["auroc"] <= 1.0 for task in entry.values())
     assert got["build"].startswith("KernelBuildError: nvcc not found"), got["build"]
+
+
+CHILD_LDM = r"""
+import json, sys
+
+BLOCKED = set(sys.argv[1].split(","))
+for name in BLOCKED:
+    sys.modules[name] = None
+
+from ddpm_ood_tpu_torch import reconstruct
+from ddpm_ood_tpu_torch.ops.attention import flash_attention_fwd
+from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
+
+recon = reconstruct.main(json.loads(sys.argv[2]))
+print(json.dumps({
+    "evals": sum(p.model_evals for p in recon._programs.values()),
+    "launches": [groupnorm_act.launches, flash_attention_fwd.launches],
+    "channels": recon.ddpm_channels,
+    "csvs": sorted(p.name for p in recon.out_dir.glob("results_*.csv")),
+    "header": (recon.out_dir / "results_val.csv").read_text().splitlines()[0],
+    "error_maps": sorted(str(p.relative_to(recon.out_dir)) for p in recon.out_dir.rglob("*.npy")),
+    "leaked": sorted(m for m, mod in sys.modules.items()
+                     if mod is not None and m.split(".")[0] in BLOCKED),
+}))
+"""
+
+
+def test_ldm_3d_scoring_runs_without_jax(tmp_path):
+    """A seeded tiny 3D VQ-VAE (.pth and vqvae_config.json) and UNet on its
+    latents, written by the port alone, scored by the port's CLI."""
+    import numpy as np
+    import torch
+
+    from ddpm_ood_tpu_torch.data.csv_splits import write_split_csv
+    from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
+    from ddpm_ood_tpu_torch.models.vqvae import VQVAE
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+    from test_torch_reconstruct import write_lpips_npz
+
+    config = dict(spatial_dims=3, in_channels=1, out_channels=1, num_res_layers=1,
+                  downsample_parameters=[[2, 4, 1, 1], [2, 4, 1, 1]],
+                  upsample_parameters=[[2, 4, 1, 1, 0], [2, 4, 1, 1, 0]],
+                  num_channels=[8, 8], num_res_channels=[8, 8], num_embeddings=16,
+                  embedding_dim=4)
+    torch.manual_seed(0)
+    (tmp_path / "vq").mkdir()
+    save_checkpoint(tmp_path / "vq" / "checkpoint.pth", VQVAE(**config).state_dict())
+    (tmp_path / "vq" / "vqvae_config.json").write_text(json.dumps(config))
+    unet = random_init_(make_unet("tiny", 3, 4, 4), torch.Generator().manual_seed(0))
+    (tmp_path / "output" / "ldm").mkdir(parents=True)
+    save_checkpoint(tmp_path / "output" / "ldm" / "checkpoint.pth", unet.state_dict())
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(2):
+        paths.append(str(tmp_path / f"vol_{i}.npy"))
+        np.save(paths[-1], rng.uniform(size=(1, 16, 16, 16)).astype(np.float32))
+    write_split_csv(paths, str(tmp_path / "val.csv"))
+    write_lpips_npz(tmp_path / "lpips.npz")
+    argv = ["--device=cpu", f"--output_dir={tmp_path / 'output'}", "--model_name=ldm",
+            f"--validation_ids={tmp_path / 'val.csv'}", f"--in_ids={tmp_path / 'val.csv'}",
+            "--run_in=0", "--run_out=0",
+            "--spatial_dimension=3", f"--vqvae_checkpoint={tmp_path / 'vq' / 'checkpoint.pth'}",
+            "--latent_pad=(2,2,0,4,4,0)", "--image_size=16", "--model_type=tiny",
+            "--is_grayscale=1", "--batch_size=2", "--num_inference_steps=10",
+            "--inference_skip_factor=5", "--num_workers=1", "--score_ssim=1",
+            "--save_error_maps=1"]
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_LDM, ",".join(BLOCKED), json.dumps(argv)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "LPIPS_WEIGHTS_NPZ": str(tmp_path / "lpips.npz")})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == [] and got["channels"] == 4
+    assert got["evals"] > 0 and got["launches"] == [0, 0]
+    assert got["csvs"] == ["results_val.csv"]
+    assert got["header"] == ",filename,type,t,perceptual_difference,mse,ssim_distance"
+    assert got["error_maps"] == ["error_maps/val/vol_0.npy", "error_maps/val/vol_1.npy"]

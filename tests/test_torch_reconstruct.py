@@ -284,9 +284,7 @@ REFUSED = [
     ("--simplex_noise=1", "--simplex_noise"),
     ("--quantize=int8", "--quantize"), ("--aot_cache=/tmp/aot", "--aot_cache"),
     ("--profile_dir=prof", "--profile_dir"), ("--resume=1", "--resume"),
-    ("--spatial_dimension=3", "--spatial_dimension"),
-    ("--vqvae_checkpoint=vq/checkpoint.pth", "--vqvae_checkpoint"),
-    ("--latent_pad=(0,0,1,1)", "--latent_pad"), ("--remat=1", "--remat"),
+    ("--remat=1", "--remat"),
 ]
 
 
@@ -300,6 +298,16 @@ def test_metrics_tail_flags_are_served(flag):
 @pytest.mark.parametrize("flag", ["--sampler=ddim", "--sampler=plms_ref", "--sampler=dpm",
                                   "--score_elbo=1"])
 def test_sampler_and_elbo_flags_are_served(flag):
+    from ddpm_ood_tpu_torch.trainers.reconstruct import refuse_unported_flags
+
+    refuse_unported_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
+
+
+@pytest.mark.parametrize("flag", ["--spatial_dimension=3",
+                                  "--vqvae_checkpoint=vq/checkpoint.pth",
+                                  "--latent_pad=(0,0,1,1)"])
+def test_latent_diffusion_flags_are_served(flag):
+    """3D and latent-diffusion scoring (tests/test_torch_ldm_reconstruct.py)."""
     from ddpm_ood_tpu_torch.trainers.reconstruct import refuse_unported_flags
 
     refuse_unported_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
