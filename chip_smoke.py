@@ -91,6 +91,7 @@ last is a JSON summary of the kernels; the last line is {"ok": true,
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import math
@@ -153,10 +154,12 @@ GN_SPATIAL = {512: (8, 8, 8), 8: (2, 2, 2), 6400: (20, 20, 16)}
 # past a 64-key tile at D = 256, two key tiles at a D that pads to 64, three
 # at a D that pads to 128, and 16 key tiles at D = 64; then the 3D small
 # UNet's deepest level, N = 8 tokens (2x2x2) at D = 256, inside one 16-row,
-# 64-key tile: a 17-lane group of batch 32, and of batch 2
+# 64-key tile: a 17-lane group of batch 32, and of batch 2; and the latent
+# diffusion training step's, batch 6
 ATTN_SHAPES = [(64, 64, 256), (128, 64, 256), (8, 100, 256), (4, 72, 40), (2, 130, 96),
-               (4, 1000, 64), (544, 8, 256), (34, 8, 256)]
+               (4, 1000, 64), (544, 8, 256), (34, 8, 256), (6, 8, 256)]
 ATTN_LDM = (544, 8, 256, torch.bfloat16)  # the summary's latent-diffusion attention shape
+ATTN_LDM_TRAIN = (6, 8, 256, torch.bfloat16)  # and the latent-diffusion training step's
 # ptxas must show no spill
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
 ATTN_SUMMARY = (128, 64, 256, torch.bfloat16)  # the training path's shape
@@ -241,7 +244,7 @@ def phase_kernels(dev: torch.device) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    summary, gn_ldm, attn_ldm = {}, {}, {}
+    summary, gn_ldm, attn_ldm, attn_ldm_train = {}, {}, {}, {}
     worst = 0.0
     oversized = GN_OVERSIZED + [GN_OVERSIZED_LDM]
     for dtype in (torch.float32, torch.bfloat16):
@@ -376,8 +379,11 @@ def phase_kernels(dev: torch.device) -> dict:
                     summary[name] = row
                 if (bh, n, d, dtype) == ATTN_LDM:
                     attn_ldm[name] = {"shape": [bh, n, d], **row}
+                if (bh, n, d, dtype) == ATTN_LDM_TRAIN:
+                    attn_ldm_train[name] = {"shape": [bh, n, d], **row}
     for name in names:
         summary[name]["ldm"] = attn_ldm[name]
+        summary[name]["ldm_train"] = attn_ldm_train[name]
         summary[name]["max_abs_err"] = worst[name]
         summary[name]["max_rel_err_bf16"] = worst_rel[name]
     return summary
@@ -887,9 +893,8 @@ LDM_CHECK_SIZE, LDM_CHECK_PAD = 32, (1, 1, 1, 1, 1, 1)
 TIE_MARGIN = 1e-5
 
 
-def _ldm_models(seed: int = 0):
-    """The seeded Decathlon VQ-VAE and 3D small UNet, on the CPU."""
-    from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
+def _ldm_vqvae(seed: int = 0):
+    """The seeded Decathlon VQ-VAE, on the CPU, in eval mode."""
     from ddpm_ood_tpu_torch.models.vqvae import VQVAE
 
     torch.manual_seed(seed)
@@ -901,6 +906,14 @@ def _ldm_models(seed: int = 0):
         last = vq.decoder.blocks[-1].conv
         last.weight.mul_(8.0)
         last.bias.fill_(0.37)
+    return vq
+
+
+def _ldm_models(seed: int = 0):
+    """The seeded Decathlon VQ-VAE and 3D small UNet, on the CPU."""
+    from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
+
+    vq = _ldm_vqvae(seed)
     unet = random_init_(make_unet("small", 3, 128, 128), torch.Generator().manual_seed(seed))
     return vq, unet.eval()
 
@@ -1083,6 +1096,26 @@ def phase_ldm_pieces(dev: torch.device, npz: Path) -> None:
     log(f"ldm: card-vs-CPU checks took {time.perf_counter() - t0:.1f} s")
 
 
+def _write_volumes(root: Path, name: str, n: int, ood: bool, rng) -> Path:
+    """n LDM_SIZE^3 volumes (``_volumes``) as .npy and their single-row split CSV."""
+    (root / name).mkdir(parents=True)
+    paths = []
+    for i, v in enumerate(_volumes(n, LDM_SIZE, ood, rng)):
+        paths.append(str(root / name / f"{name}_{i}.npy"))
+        np.save(paths[-1], v)
+    (root / f"{name}.csv").write_text(",".join(paths))
+    return root / f"{name}.csv"
+
+
+def _scalars(path: Path) -> dict:
+    """{tag: [values in step order]} of a Logger's scalars.jsonl."""
+    out = {}
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        out.setdefault(rec["tag"], []).append(rec["value"])
+    return out
+
+
 def _ldm_cli(argv: list):
     """One latent scoring CLI run in this process with its program's encode,
     UNet, decode and metrics tail timed on the device; returns (Reconstruct,
@@ -1126,15 +1159,8 @@ def phase_ldm(dev: torch.device, root: Path, batch: int = LDM_BATCH) -> dict:
     t0 = time.perf_counter()
     ldm = root / "ldm"
     rng = np.random.default_rng(8)
-    csvs = {}
-    for name, ood in (("val", False), ("in", False), ("Task02_Heart_test", True)):
-        (ldm / name).mkdir(parents=True)
-        paths = []
-        for i, v in enumerate(_volumes(batch, LDM_SIZE, ood, rng)):
-            paths.append(str(ldm / name / f"{name}_{i}.npy"))
-            np.save(paths[-1], v)
-        csvs[name] = ldm / f"{name}.csv"
-        csvs[name].write_text(",".join(paths))
+    csvs = {name: _write_volumes(ldm, name, batch, ood, rng)
+            for name, ood in (("val", False), ("in", False), ("Task02_Heart_test", True))}
     vq, unet = _ldm_models()
     (ldm / "vqvae").mkdir()
     save_checkpoint(ldm / "vqvae" / "checkpoint.pth", vq.state_dict())
@@ -1245,6 +1271,42 @@ def read_launches() -> dict:
             "groupnorm_act_cluster": fns["groupnorm_act"].cluster_launches}
 
 
+def _fp32_step_launches(forwards: int, backwards: int) -> dict:
+    """The launch counts of fp32 UNet training: GroupNorm on the cluster
+    kernel, attention on the CUDA-core kernels."""
+    return {"groupnorm_act": GN_PER_FORWARD * forwards,
+            "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
+            "flash_attention_bwd_dkv": ATTN_PER_FORWARD * backwards,
+            "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards,
+            "flash_attention_fwd_tc": 0, "flash_attention_bwd_dkv_tc": 0,
+            "flash_attention_bwd_dq_tc": 0, "groupnorm_act_cluster": GN_PER_FORWARD * forwards}
+
+
+def _grad_errs(g_cpu: dict, g_gpu: dict) -> tuple:
+    """(worst relative error, its name, the largest key-bias gradient, the
+    largest gradient) of the card's gradients against the CPU's, each
+    relative to the CPU tensor's largest |value|. A missing or all-zero card
+    gradient raises. The attention key biases are returned apart: softmax
+    ignores a per-query constant, so their gradient is 0 in exact arithmetic
+    and rounding noise on both devices."""
+    missing = [n for n in g_cpu if g_cpu[n] is None or g_gpu[n] is None]
+    if missing:
+        raise PhaseError(f"no gradient for {missing}")
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name, shift_free = 0.0, "", 0.0
+    for name, ref in g_cpu.items():
+        got = g_gpu[name]
+        if name.endswith(SHIFT_FREE_GRAD):
+            shift_free = max(shift_free, got.abs().max().item(), ref.abs().max().item())
+            continue
+        if got.abs().max().item() == 0.0:
+            raise PhaseError(f"gradient of {name} is all zero on the card")
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, shift_free, scale
+
+
 def phase_train_step(dev: torch.device, preset: str = "small", size: int = 32) -> None:
     """One fp32 training step's loss and gradients: the UNet (the full-width
     small one unless `preset` says otherwise) through the kernels on the
@@ -1266,33 +1328,12 @@ def phase_train_step(dev: torch.device, preset: str = "small", size: int = 32) -
         out[device.type] = (loss.item(), {n: None if p.grad is None else p.grad.cpu()
                                           for n, p in model.named_parameters()})
         counts = read_launches()
-    want = {"groupnorm_act": GN_PER_FORWARD, "flash_attention_fwd": ATTN_PER_FORWARD,
-            "flash_attention_bwd_dkv": ATTN_PER_FORWARD,
-            "flash_attention_bwd_dq": ATTN_PER_FORWARD,
-            # fp32: no launch on the bf16 tensor-core kernels; GroupNorm on clusters
-            "flash_attention_fwd_tc": 0, "flash_attention_bwd_dkv_tc": 0,
-            "flash_attention_bwd_dq_tc": 0, "groupnorm_act_cluster": GN_PER_FORWARD}
+    want = _fp32_step_launches(1, 1)
     if counts != want:
         raise PhaseError(f"one training step launched {counts}, expected {want}")
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
-    missing = [n for n in g_cpu if g_cpu[n] is None or g_gpu[n] is None]
-    if missing:
-        raise PhaseError(f"no gradient for {missing}")
-    scale = max(g.abs().max().item() for g in g_cpu.values())
-    worst, worst_name, shift_free = 0.0, "", 0.0
-    for name, ref in g_cpu.items():
-        got = g_gpu[name]
-        if name.endswith(SHIFT_FREE_GRAD):
-            # softmax ignores a per-query constant, so the key bias's gradient
-            # is 0 in exact arithmetic and rounding noise on both devices
-            shift_free = max(shift_free, got.abs().max().item(), ref.abs().max().item())
-            continue
-        if got.abs().max().item() == 0.0:
-            raise PhaseError(f"gradient of {name} is all zero on the card")
-        err = (got - ref).abs().max().item() / ref.abs().max().item()
-        if not math.isfinite(err) or err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, shift_free, scale = _grad_errs(g_cpu, g_gpu)
     log(f"train step ({preset} UNet, {size}x{size}): fp32 card vs CPU loss {l_gpu:.6f} vs "
         f"{l_cpu:.6f} rel_err={loss_err:.3e}; "
         f"{len(g_cpu)} gradients, worst rel_err={worst:.3e} ({worst_name}) tol={GRAD_TOL:.0e}; "
@@ -1362,8 +1403,7 @@ def phase_train(dev: torch.device) -> dict:
         if launches != want:
             raise PhaseError(f"launches {launches} != expected {want}")
 
-        losses = [json.loads(line)["value"] for line in
-                  (trainer.run_dir / "train" / "scalars.jsonl").read_text().splitlines()]
+        losses = _scalars(trainer.run_dir / "train" / "scalars.jsonl")["loss"]
         first, second = (statistics.mean(losses[i:i + TRAIN_STEPS_PER_EPOCH])
                          for i in (0, TRAIN_STEPS_PER_EPOCH))
         log(f"train: per-step losses {[round(v, 5) for v in losses]}; epoch means "
@@ -1400,6 +1440,322 @@ def phase_train(dev: torch.device) -> dict:
     return launches
 
 
+# the fp32 card-vs-CPU checks of latent-diffusion training: the Decathlon
+# VQ-VAE and a PatchGAN discriminator (Flax's init) on 2 volumes of 32^3;
+# the LDM step pads their 2^3 latents to the 8^3 of the real path
+VQ_STEP_BATCH, VQ_STEP_ADV = 2, 0.1
+# The VQ-VAE's encoder gradients are sums that cancel, and two fp32
+# implementations both miss their fp64 values: on an H100 host, cuDNN's fp32
+# by up to 1.0e-2 of a tensor's largest value and the CPU's channels-last
+# fp32 by up to 2.0e-2, where the card's decoder gradients stay within 4e-6
+# (PERF.md). So each G gradient of the card is held against an fp64
+# CPU reference, to GRAD_TOL or GRAD_CONDITION times the CPU fp32's own
+# error on that tensor, whichever is larger, and never beyond GRAD_CAP.
+GRAD_CONDITION, GRAD_CAP = 10.0, 5e-2
+LDM_STEP_PAD = (3, 3, 3, 3, 3, 3)
+# latent-diffusion training at the Decathlon geometry (docs/RUNBOOK.md's 3D
+# recipe: VQ-VAE batch 8 as --grad_accum_steps=4 --remat=1 on one card, LDM
+# batch 6), cut to 2 epochs of 24 synthetic volumes each
+TRAIN_LDM_VOLUMES, TRAIN_LDM_VAL, TRAIN_LDM_MODEL = 24, 8, "smoke_train_decathlon"
+VQ_TRAIN_ARGS = ["--spatial_dimension=3", "--image_roi=[160,160,128]", f"--image_size={LDM_SIZE}",
+                 "--is_grayscale=1",
+                 "--vqvae_downsample_parameters=[[2,4,1,1],[2,4,1,1],[2,4,1,1],[2,4,1,1]]",
+                 "--vqvae_upsample_parameters=[[2,4,1,1,0],[2,4,1,1,0],[2,4,1,1,0],[2,4,1,1,0]]",
+                 "--vqvae_num_channels=[256,256,256,256]",
+                 "--vqvae_num_res_channels=[256,256,256,256]", "--vqvae_embedding_dim=128",
+                 "--vqvae_num_embeddings=2048", "--vqvae_decay=0.9", "--vqvae_learning_rate=3e-5",
+                 "--batch_size=8", "--grad_accum_steps=4", "--remat=1", "--n_epochs=2",
+                 "--eval_freq=2", "--checkpoint_every=2", "--num_workers=4"]
+LDM_TRAIN_ARGS = ["--batch_size=6", "--n_epochs=2", "--eval_freq=2", "--checkpoint_every=2",
+                  "--num_workers=4"]
+
+
+def _rel_errs(cpu: dict, card: dict) -> dict:
+    """{name: max|card - cpu| / max|cpu|} over tensors of the same names."""
+    return {n: ((card[n].float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            for n, ref in cpu.items()}
+
+
+def phase_vqvae_step(dev: torch.device, npz: Path) -> None:
+    """fp32, TF32 off, card against CPU from the same weights: one VQ-VAE +
+    PatchGAN G step and one D step (on the CPU's reconstruction) at full
+    channel widths on 32^3 volumes, then one 3D LDM training step."""
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.losses.lpips import PerceptualLoss
+    from ddpm_ood_tpu_torch.models.discriminator import PatchDiscriminator, init_like_flax_
+    from ddpm_ood_tpu_torch.models.unet import make_unet, memory_format, random_init_
+    from ddpm_ood_tpu_torch.train.ddpm import DDPMTrainStep
+    from ddpm_ood_tpu_torch.train.vqvae import VQVAETrainStep
+
+    t0 = time.perf_counter()
+    fmt = memory_format(3)
+    base = _ldm_vqvae()  # eval mode; each side trains a copy
+    rng = np.random.default_rng(9)
+    vols = torch.from_numpy(_volumes(VQ_STEP_BATCH, LDM_CHECK_SIZE, False, rng))
+    d_init = init_like_flax_(PatchDiscriminator(spatial_dims=3),
+                             torch.Generator().manual_seed(0)).state_dict()
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    # the fp32 CPU, the fp32 card, and an fp64 CPU reference for the G gradients
+    sides = {"cpu": (devices["cpu"], torch.float32), "cuda": (dev, torch.float32),
+             "cpu64": (devices["cpu"], torch.float64)}
+    out = {}
+    for side, (device, dtype) in sides.items():
+        vq = copy.deepcopy(base).to(device, dtype, memory_format=fmt)
+        disc = PatchDiscriminator(spatial_dims=3)
+        disc.load_state_dict(d_init)
+        disc = disc.to(device, dtype, memory_format=fmt)
+        step = VQVAETrainStep(model=vq, discriminator=disc, spatial_dims=3,
+                              perceptual=PerceptualLoss(weights_path=str(npz),
+                                                        spatial_dims=3).to(device, dtype),
+                              vqvae_lr=3e-5)
+        x = vols.to(device, dtype).contiguous(memory_format=fmt)
+        with torch.no_grad():  # the codes the G step's quantizer will pick
+            codes = vq.quantizer(vq.encode(x))[2].cpu().reshape(-1)
+        metrics, recon = step.generator_step(x, VQ_STEP_ADV)
+        res = {"codes": codes, "losses": {k: v.cpu() for k, v in metrics.items()},
+               "g_grads": {n: p.grad.cpu().double() for n, p in vq.named_parameters()},
+               "ema": {k: v.cpu() for k, v in step.quantizer.state_dict().items()},
+               "recon": recon.cpu()}
+        fake = (out["cpu"]["recon"].to(device) if side == "cuda" else recon).contiguous(
+            memory_format=fmt)
+        res["losses"]["discriminator_loss"] = step.discriminator_step(fake, x, VQ_STEP_ADV).cpu()
+        res["d_grads"] = {n: p.grad.cpu() for n, p in disc.named_parameters()}
+        res["bn"] = {k: v.cpu() for k, v in disc.state_dict().items() if "running" in k}
+        out[side] = res
+    torch.cuda.synchronize()
+    codebook = base.quantizer.quantizer.embedding.weight.numpy()
+    with torch.no_grad():
+        z = base.encode(vols.to(memory_format=fmt))
+    ties = _near_ties(z.movedim(1, -1).numpy(), codebook, TIE_MARGIN)
+    same = out["cuda"]["codes"] == out["cpu"]["codes"]
+    if not bool(same[torch.from_numpy(~ties)].all()):
+        raise PhaseError(f"VQ-VAE step: {int((~same).sum())} quantizer indices differ, "
+                         f"{int(ties.sum())} positions near a tie")
+    c, g = out["cpu"], out["cuda"]
+    errs = _rel_errs(c["losses"], g["losses"])
+    state = {**_rel_errs(c["ema"], g["ema"]), **_rel_errs(c["bn"], g["bn"])}
+    worst_d, name_d, _, _ = _grad_errs(c["d_grads"], g["d_grads"])
+    for name, grad in g["g_grads"].items():
+        if grad.abs().max().item() == 0.0:
+            raise PhaseError(f"VQ-VAE gradient of {name} is all zero on the card")
+    e_cpu = _rel_errs(out["cpu64"]["g_grads"], c["g_grads"])
+    e_card = _rel_errs(out["cpu64"]["g_grads"], g["g_grads"])
+    tols = {n: min(GRAD_CAP, max(GRAD_TOL, GRAD_CONDITION * e)) for n, e in e_cpu.items()}
+    name_g = max(e_card, key=lambda n: e_card[n] / tols[n])
+    worst_g = e_card[name_g] / tols[name_g]  # <= 1 passes
+    name_cpu = max(e_cpu, key=e_cpu.get)
+    held = bool(same.all())  # a near-tie that fell apart changes a code: values held finite
+    log(f"vqvae step: Decathlon VQ-VAE + PatchGAN on ({VQ_STEP_BATCH}, 1, {LDM_CHECK_SIZE}^3), "
+        f"adv_weight {VQ_STEP_ADV}, fp32 card vs CPU: quantizer indices equal at "
+        f"{int(same.sum())} of {same.numel()}, {int(ties.sum())} within {TIE_MARGIN:.0e} of a "
+        f"tie; losses " + ", ".join(f"{n} {c['losses'][n].item():.6f} rel_err={e:.3e}"
+                                    for n, e in errs.items())
+        + f"; G gradients ({len(e_card)}) against fp64: card fp32 worst "
+        f"{max(e_card.values()):.3e}, CPU fp32 worst {e_cpu[name_cpu]:.3e} ({name_cpu}); "
+        f"{sum(t > GRAD_TOL for t in tols.values())} tensors held above {GRAD_TOL:.0e} by "
+        f"the CPU's own error; tightest {name_g} card {e_card[name_g]:.3e} of "
+        f"{tols[name_g]:.3e}; decoder worst card "
+        f"{max(e for n, e in e_card.items() if n.startswith('decoder')):.3e}; D "
+        f"gradients ({len(c['d_grads'])}) worst {worst_d:.3e} ({name_d}); EMA and BatchNorm "
+        "statistics " + ", ".join(f"{n} {e:.3e}" for n, e in state.items())
+        + f"; tol {FWD_TOL:.0e} (losses, statistics), {GRAD_TOL:.0e} (D gradients)"
+        + ("" if held else "; a code differs at a near-tie: values held finite only"))
+    values = list(errs.values()) + list(state.values()) + [worst_g, worst_d]
+    if not all(math.isfinite(v) for v in values):
+        raise PhaseError(f"VQ-VAE step: a value is not finite: {errs} {state} {worst_g} {worst_d}")
+    if held and not (all(e <= FWD_TOL for e in list(errs.values()) + list(state.values()))
+                     and worst_g <= 1.0 and worst_d <= GRAD_TOL):
+        raise PhaseError(f"VQ-VAE step on the card disagrees with the CPU: {errs} {state} "
+                         f"G {name_g} {e_card[name_g]} > {tols[name_g]}, D {name_d} {worst_d}")
+
+    # one 3D LDM training step: encode, pad to 8^3, loss, every UNet gradient
+    unet_init = random_init_(make_unet("small", 3, 128, 128),
+                             torch.Generator().manual_seed(2)).state_dict()
+    noise = torch.from_numpy(rng.standard_normal((VQ_STEP_BATCH, 128, 8, 8, 8),
+                                                 dtype=np.float32))
+    t = torch.tensor([20, 900])
+    ldm, x0_cpu = {}, None
+    for side, device in devices.items():
+        unet = make_unet("small", 3, 128, 128)
+        unet.load_state_dict(unet_init)
+        vq = copy.deepcopy(base).to(device, memory_format=fmt)
+        step = DDPMTrainStep(model=unet.to(device, memory_format=fmt),
+                             sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195,
+                                                 device=device),
+                             encode_fn=vq.encode_stage_2_inputs, latent_pad=LDM_STEP_PAD)
+        x0 = step.prepare(vols.to(device, memory_format=fmt))
+        x0_cpu = x0.cpu() if x0_cpu is None else x0_cpu
+        reset_launches()  # the gradients of both sides are taken on the CPU's latents
+        loss = step.grads(x0_cpu.to(device, memory_format=fmt), noise.to(device), t.to(device))
+        ldm[side] = (x0.cpu(), loss.item(),
+                     {n: None if p.grad is None else p.grad.cpu()
+                      for n, p in unet.named_parameters()}, read_launches())
+    want = _fp32_step_launches(1, 1)
+    if ldm["cuda"][3] != want:
+        raise PhaseError(f"one 3D LDM training step launched {ldm['cuda'][3]}, expected {want}")
+    image_ties = torch.from_numpy(ties.reshape(VQ_STEP_BATCH, -1).any(-1))
+    keep = ~image_ties
+    err_x0 = ((ldm["cuda"][0] - ldm["cpu"][0])[keep].abs().max()
+              / ldm["cpu"][0][keep].abs().max()).item() if keep.any() else float("nan")
+    loss_err = abs(ldm["cuda"][1] - ldm["cpu"][1]) / abs(ldm["cpu"][1])
+    worst, worst_name, shift_free, scale = _grad_errs(ldm["cpu"][2], ldm["cuda"][2])
+    log(f"vqvae step: 3D LDM training step (encode, latent_pad {LDM_STEP_PAD} to 8^3, small "
+        f"UNet) fp32 card vs CPU: latents rel_err={err_x0:.3e} over {int(keep.sum())} of "
+        f"{VQ_STEP_BATCH} images without a near-tie; loss {ldm['cuda'][1]:.6f} vs "
+        f"{ldm['cpu'][1]:.6f} rel_err={loss_err:.3e}; {len(ldm['cpu'][2])} gradients, worst "
+        f"rel_err={worst:.3e} ({worst_name}) tol={GRAD_TOL:.0e}; key-bias gradients at most "
+        f"{shift_free:.3e} against {scale:.3e}; launches {ldm['cuda'][3]}")
+    if not ((not keep.any() or err_x0 <= FWD_TOL) and loss_err <= GRAD_TOL
+            and math.isfinite(worst) and worst <= GRAD_TOL and shift_free <= 1e-5 * scale):
+        raise PhaseError(f"3D LDM training step on the card disagrees with the CPU: latents "
+                         f"{err_x0}, loss {loss_err}, gradient {worst_name} {worst}, key bias "
+                         f"{shift_free}")
+    log(f"vqvae step: phase took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_train_ldm(dev: torch.device, root: Path) -> dict:
+    """The 3D latent-diffusion training recipe at the Decathlon geometry:
+    train_vqvae, train_ddpm on its checkpoint, then the scoring CLI on both
+    trained checkpoints; returns the LDM training CLI's launch counts."""
+    from ddpm_ood_tpu_torch import reconstruct as score_cli
+    from ddpm_ood_tpu_torch import train_ddpm, train_vqvae
+    from ddpm_ood_tpu_torch.diffusion.ddim import ddim_timesteps
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points
+    from ddpm_ood_tpu_torch.models.vqvae import VQVAE
+    from ddpm_ood_tpu_torch.ood import run_ood_detection
+    from ddpm_ood_tpu_torch.trainers.base import resolve_device
+    from ddpm_ood_tpu_torch.trainers.vqvae_trainer import VQVAETrainer
+    from ddpm_ood_tpu_torch.utils.checkpoint import load_vqvae_checkpoint
+
+    t0 = time.perf_counter()
+    data = root / "train_ldm"
+    rng = np.random.default_rng(10)
+    train_csv = _write_volumes(data, "train", TRAIN_LDM_VOLUMES, False, rng)
+    val_csv = _write_volumes(data, "val", TRAIN_LDM_VAL, False, rng)
+    ood_csv = _write_volumes(data, "Task02_Heart_test", 2, True, rng)
+    out = data / "output"
+    common = [f"--output_dir={out}", f"--training_ids={train_csv}",
+              f"--validation_ids={val_csv}", "--device=cuda"]
+
+    # stage 1: the VQ-VAE and its discriminator
+    argv = [*common, "--model_name=vqvae_decathlon", *VQ_TRAIN_ARGS]
+    log("train_ldm: python -m ddpm_ood_tpu_torch.train_vqvae " + " ".join(argv))
+    args = train_vqvae.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    vq = VQVAETrainer(args, resolve_device(args.device))  # what train_vqvae.main runs
+    codebook = vq.model.quantizer.quantizer.embedding.weight.clone()
+    vq.train(args)
+    torch.cuda.synchronize()
+    vq_wall = time.perf_counter() - t1
+    vq_peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(read_launches().values()):
+        raise PhaseError(f"VQ-VAE training launched the UNet's kernels: {read_launches()}")
+    steps = 2 * math.ceil(TRAIN_LDM_VOLUMES / 8)
+    losses = _scalars(vq.run_dir / "train" / "scalars.jsonl")
+    if (sorted(losses) != sorted(("l1_loss", "quantization_loss", "perceptual_loss",
+                                  "jukebox_loss", "adversarial_loss", "generator_loss",
+                                  "discriminator_loss"))
+            or any(len(v) != steps or not all(map(math.isfinite, v)) for v in losses.values())):
+        raise PhaseError(f"VQ-VAE training losses are not {steps} finite values a tag: {losses}")
+    moved = (vq.model.quantizer.quantizer.embedding.weight - codebook).abs().max().item()
+    ckpt = vq.run_dir / "checkpoint.pth"
+    config, state = load_vqvae_checkpoint(ckpt)
+    VQVAE(**config).load_state_dict(state, strict=True)
+    grid = np.load(vq.run_dir / "val" / f"RECONSTRUCTIONS_{2 * TRAIN_LDM_VOLUMES}.npy")
+    if not (moved > 0 and (vq.run_dir / "checkpoint_2.pth").is_file()
+            and grid.shape == (4, 2, LDM_SIZE, LDM_SIZE, 1) and np.isfinite(grid).all()):
+        raise PhaseError(f"VQ-VAE training: codebook moved by {moved}, reconstruction grid "
+                         f"{grid.shape}, files {sorted(p.name for p in vq.run_dir.iterdir())}")
+    vq_rates = [n / s for n, s in vq.epoch_times]
+    log(f"train_ldm: VQ-VAE {vq.step.g_backwards} G microbatch backwards in {steps} G+D steps; "
+        f"losses per step {({k: [round(x, 5) for x in v] for k, v in losses.items()})}; "
+        f"codebook moved by up to {moved:.3e}; {ckpt.name} and vqvae_config.json load")
+    log(f"train_ldm: VQ-VAE {vq_rates[0]:.3f} volumes/s in epoch 1 (first steps included), "
+        f"{vq_rates[1]:.3f} volumes/s in epoch 2 ({8 / vq_rates[1]:.3f} s a G+D step of 8); CLI "
+        f"wall {vq_wall:.1f} s; peak device memory {vq_peak:.2f} GiB; card {CARD}")
+
+    # stage 2: the small 3D UNet on the frozen VQ-VAE's latents
+    argv = [*common, f"--model_name={TRAIN_LDM_MODEL}", f"--vqvae_checkpoint={ckpt}",
+            *LDM_ARGS, *LDM_TRAIN_ARGS]
+    log("train_ldm: python -m ddpm_ood_tpu_torch.train_ddpm " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    ldm = train_ddpm.main(argv)
+    torch.cuda.synchronize()
+    ldm_wall = time.perf_counter() - t1
+    launches = read_launches()
+    ldm_peak = torch.cuda.max_memory_allocated() / 2**30
+    ldm_steps = 2 * math.ceil(TRAIN_LDM_VOLUMES / 6)
+    forwards = ldm.step.forwards + ldm.sample_forwards
+    want = {"groupnorm_act": GN_PER_FORWARD * forwards,
+            "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
+            "flash_attention_bwd_dkv": ATTN_PER_FORWARD * ldm.step.backwards,
+            "flash_attention_bwd_dq": ATTN_PER_FORWARD * ldm.step.backwards}
+    want.update({f"{name}_tc": want[name] for name in TC_COUNTED})
+    want["groupnorm_act_cluster"] = want["groupnorm_act"]
+    log(f"train_ldm: {ldm.step.backwards} LDM training steps, {ldm.step.forwards} train/eval "
+        f"UNet forwards + {ldm.sample_forwards} sampler forwards; launches {launches}")
+    if ldm.step.backwards != ldm_steps or ldm.sample_forwards != 1000 or launches != want:
+        raise PhaseError(f"LDM training: {ldm.step.backwards} steps (expected {ldm_steps}), "
+                         f"{ldm.sample_forwards} sampler forwards; launches {launches} != {want}")
+    ldm_losses = _scalars(ldm.run_dir / "train" / "scalars.jsonl")["loss"]
+    if len(ldm_losses) != ldm_steps or not all(map(math.isfinite, ldm_losses)):
+        raise PhaseError(f"LDM training losses are not {ldm_steps} finite values: {ldm_losses}")
+    images = TRAIN_LDM_VOLUMES * 2
+    _check_checkpoint(ldm.run_dir / "checkpoint_2.pth", 2, images, ldm_steps)
+    # the rolling best on train loss: epoch 1 or 2, as the losses fell
+    best_epoch = int(torch.load(ldm.run_dir / "checkpoint.pth", map_location="cpu",
+                                weights_only=True)["epoch"])
+    best = _check_checkpoint(ldm.run_dir / "checkpoint.pth", best_epoch,
+                             images * best_epoch // 2, ldm_steps * best_epoch // 2)
+    samples = np.load(ldm.run_dir / "val" / f"samples_{images}.npy")
+    if samples.shape != (2, LDM_SIZE, LDM_SIZE, LDM_SIZE, 1) or not np.isfinite(samples).all():
+        raise PhaseError(f"LDM sample grid {samples.shape} is not 2 finite decoded volumes")
+    ldm_rates = [n / s for n, s in ldm.epoch_times]
+    log(f"train_ldm: LDM losses {[round(v, 5) for v in ldm_losses]}; {ldm_rates[0]:.2f} latents/s "
+        f"in epoch 1 (first steps included), {ldm_rates[1]:.2f} latents/s in epoch 2 "
+        f"({6e3 / ldm_rates[1]:.1f} ms a step of 6, the encode included); CLI wall "
+        f"{ldm_wall:.1f} s with the 1000-step validation sample; peak device memory "
+        f"{ldm_peak:.2f} GiB; card {CARD}")
+
+    # the scoring CLI on both trained checkpoints: dpm 25/1, one batch a set
+    argv = [f"--output_dir={out}", f"--model_name={TRAIN_LDM_MODEL}",
+            f"--vqvae_checkpoint={ckpt}", f"--validation_ids={val_csv}",
+            f"--in_ids={val_csv}", f"--out_ids={ood_csv}", "--device=cuda", *LDM_ARGS,
+            "--batch_size=2", "--first_n_val=2", "--first_n=2", *LDM_GRIDS[1][1]]
+    log("train_ldm: python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
+    reset_launches()
+    recon = score_cli.main(argv)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    evals = sum(p.model_evals for p in recon._programs.values())
+    _check_launches(counts, evals, "scoring the trained latent diffusion model", bf16=True)
+    loaded = recon.unet.state_dict()
+    vq_loaded = recon.vqvae.state_dict()
+    if (any(not torch.equal(loaded[k].cpu(), v) for k, v in best["model_state_dict"].items())
+            or any(not torch.equal(vq_loaded[k].cpu(), v) for k, v in state.items())):
+        raise PhaseError("the scoring CLI's weights differ from the trained checkpoints")
+    t_starts = pndm_start_points(ddim_timesteps(1000, 25), 1)
+    for name in ("val", "in", "Task02"):
+        _check_csv(recon.out_dir / f"results_{name}.csv", t_starts,
+                   ("mse", "perceptual_difference"), n_images=2)
+    res = run_ood_detection(str(out), TRAIN_LDM_MODEL, plot_target="mse",
+                            out_datasets=["Task02"])
+    auc = res["Zscore_mse"]
+    if len(auc) != 1 or not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in auc):
+        raise PhaseError(f"train_ldm: AUROC {auc}")
+    log(json.dumps({"train_ldm": {
+        "vqvae_volumes_per_s": vq_rates[1], "vqvae_volumes_per_s_epoch1": vq_rates[0],
+        "vqvae_peak_gib": vq_peak, "ldm_latents_per_s": ldm_rates[1],
+        "ldm_latents_per_s_epoch1": ldm_rates[0], "ldm_peak_gib": ldm_peak,
+        "auroc_mse": auc[0], "card": CARD}}))
+    log(f"train_ldm: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -1419,6 +1775,8 @@ def main() -> int:
             samplers = phase_samplers(dev, root)
             phase_ldm_pieces(dev, npz)
             ldm = phase_ldm(dev, root)
+            phase_vqvae_step(dev, npz)
+            train_ldm = phase_train_ldm(dev, root)
             train = phase_train(dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -1427,15 +1785,15 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {"score": score.get(name, 0), "samplers": samplers.get(name, 0),
-                   "ldm": ldm.get(name, 0), "train": train[name]}
+                   "ldm": ldm.get(name, 0), "train": train[name], "train_ldm": train_ldm[name]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in TC_COUNTED:
             row["tensor_core_launches"] = sum(p[f"{name}_tc"]
-                                              for p in (score, samplers, ldm, train))
+                                              for p in (score, samplers, ldm, train, train_ldm))
         if name == "groupnorm_act":
             row["cluster_launches"] = sum(p["groupnorm_act_cluster"]
-                                          for p in (score, samplers, ldm, train))
+                                          for p in (score, samplers, ldm, train, train_ldm))
         kernels.append({**row, **summary[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

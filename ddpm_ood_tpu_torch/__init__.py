@@ -3,8 +3,10 @@
 It imports ``torch`` and never JAX, nor anything of the JAX package. Its
 layout mirrors the JAX package, which stays the reference the port is tested
 against. It serves OOD scoring (``python -m ddpm_ood_tpu_torch.reconstruct``),
-its AUROCs (``python -m ddpm_ood_tpu_torch.ood_detection``) and 2D DDPM
-training (``python -m ddpm_ood_tpu_torch.train_ddpm``).
+its AUROCs (``python -m ddpm_ood_tpu_torch.ood_detection``), DDPM training
+in 2D and 3D, in pixel space or on VQ-VAE latents (``python -m
+ddpm_ood_tpu_torch.train_ddpm``), and VQ-VAE + PatchGAN training (``python
+-m ddpm_ood_tpu_torch.train_vqvae``).
 """
 
 __version__ = "0.1.0"

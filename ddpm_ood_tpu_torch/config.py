@@ -1,7 +1,8 @@
 """Argparse surfaces of the port's CLIs: the same flags and defaults as the
-JAX package's ``train_ddpm.py``, ``reconstruct.py`` and ``ood_detection.py``,
-so launch scripts work unchanged. A copy of ``ddpm_ood_tpu/config.py``'s
-``parse_args_train_ddpm``, ``parse_args_reconstruct`` and
+JAX package's ``train_ddpm.py``, ``train_vqvae.py``, ``reconstruct.py`` and
+``ood_detection.py``, so launch scripts work unchanged. A copy of
+``ddpm_ood_tpu/config.py``'s ``parse_args_train_ddpm``,
+``parse_args_train_vqvae``, ``parse_args_reconstruct`` and
 ``parse_args_ood_detection``: the port imports nothing of the JAX package.
 Tuple-ish flags are parsed with ast.literal_eval like the reference.
 
@@ -142,6 +143,95 @@ def parse_args_train_ddpm(argv=None) -> argparse.Namespace:
         "--profile_dir", default=None,
         help="Capture a jax.profiler device trace of a few warm train steps into "
         "this directory (framework extension; TensorBoard-loadable).",
+    )
+    return parser.parse_args(argv)
+
+
+def parse_args_train_vqvae(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Train a VQ-VAE (stage 1 of an LDM).")
+    _common_train_flags(parser)
+    parser.add_argument(
+        "--spatial_dimension", default=3, type=int, help="Dimension of images: 2d or 3d."
+    )
+    parser.add_argument("--vqvae_in_channels", default=1, type=int)
+    parser.add_argument("--vqvae_out_channels", default=1, type=int)
+    parser.add_argument("--vqvae_num_res_layers", default=3, type=int)
+    parser.add_argument(
+        "--vqvae_downsample_parameters",
+        default=((2, 4, 1, 1), (2, 4, 1, 1), (2, 4, 1, 1), (2, 4, 1, 1)),
+        type=ast.literal_eval,
+        help="Per-level (stride, kernel, dilation, padding).",
+    )
+    parser.add_argument(
+        "--vqvae_upsample_parameters",
+        default=((2, 4, 1, 1, 0), (2, 4, 1, 1, 0), (2, 4, 1, 1, 0), (2, 4, 1, 1, 0)),
+        type=ast.literal_eval,
+        help="Per-level (stride, kernel, dilation, padding, output_padding).",
+    )
+    parser.add_argument(
+        "--vqvae_num_channels", default=[128, 128, 128, 256], type=ast.literal_eval
+    )
+    parser.add_argument(
+        "--vqvae_num_res_channels", default=[128, 128, 128, 256], type=ast.literal_eval
+    )
+    parser.add_argument("--vqvae_num_embeddings", default=256, type=int)
+    parser.add_argument("--vqvae_embedding_dim", default=256, type=int)
+    parser.add_argument("--vqvae_decay", default=0.99, type=float)
+    parser.add_argument("--vqvae_commitment_cost", default=0.25, type=float)
+    parser.add_argument("--vqvae_epsilon", default=1e-5, type=float)
+    parser.add_argument("--vqvae_dropout", default=0.0, type=float)
+    parser.add_argument("--vqvae_ddp_sync", default=True, type=bool)
+    parser.add_argument("--vqvae_learning_rate", default=3e-4, type=float)
+    parser.add_argument(
+        "--remat", type=int, default=0,
+        help="Rematerialize VQ-VAE residual units in the backward pass "
+        "(framework extension): cuts activation memory for the production 3D "
+        "pixel-space config (image_roi [160,160,128]); numerics unchanged.",
+    )
+    parser.add_argument(
+        "--grad_accum_steps", type=int, default=1,
+        help="Accumulate GENERATOR gradients over this many equal microbatches "
+        "inside the jitted G step (framework extension; lax.scan). Gradients, "
+        "metrics, and the EMA codebook update are exact vs the full batch; the "
+        "activation-light D step keeps the full batch. batch_size must be "
+        "divisible by it. Composable with --remat for the production 3D "
+        "pixel-space config.",
+    )
+    parser.add_argument(
+        "--fsdp", type=int, default=0,
+        help="Shard G and D params + optimizer state along the data mesh "
+        "axis (framework extension, parallel/fsdp.py; ZeRO-3 pattern via "
+        "GSPMD input shardings). Numerics match replicated DP; reclaims "
+        "per-chip static HBM — matters most for the 3D pixel-space G step.",
+    )
+    parser.add_argument("--batch_size", type=int, default=4, help="Training batch size.")
+    parser.add_argument("--n_epochs", type=int, default=300, help="Number of epochs to train.")
+    parser.add_argument(
+        "--eval_freq", type=int, default=10, help="Epochs between evaluations."
+    )
+    parser.add_argument(
+        "--augmentation", type=int, default=1, help="Use of augmentation, 1 or 0."
+    )
+    parser.add_argument(
+        "--adversarial_weight", type=float, default=0.01,
+        help="Weight of the adversarial loss term.",
+    )
+    parser.add_argument(
+        "--adversarial_warmup", type=int, default=0,
+        help="Linearly warm the adversarial weight over the first 50 epochs.",
+    )
+    parser.add_argument("--num_workers", type=int, default=8, help="Number of loader workers")
+    parser.add_argument(
+        "--cache_data", type=int, default=1, help="Cache data in the loader."
+    )
+    parser.add_argument(
+        "--checkpoint_every", type=int, default=100,
+        help="Save a checkpoint every checkpoint_every epochs.",
+    )
+    parser.add_argument("--is_grayscale", type=int, default=0, help="Is data grayscale.")
+    parser.add_argument(
+        "--quick_test", type=int, default=0,
+        help="Run a single batch of the train and eval loops.",
     )
     return parser.parse_args(argv)
 

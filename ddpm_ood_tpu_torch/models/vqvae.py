@@ -1,11 +1,12 @@
-"""VQ-VAE (2D or 3D) with an EMA codebook, forward only, with monai-generative
+"""VQ-VAE (2D or 3D) with an EMA codebook, with monai-generative
 state_dict names.
 
 Port of ``ddpm_ood_tpu/models/vqvae.py`` (``ConvTransposeTorchLike``,
-``VQVAEResidualUnit``, ``Encoder``, ``Decoder``, ``EMAQuantizer``, ``VQVAE``)
-for scoring a latent diffusion model: the stage-2 API
-``encode_stage_2_inputs`` / ``decode_stage_2_outputs`` and ``reconstruct``.
-The EMA codebook update and the GAN training of stage 1 are not ported.
+``VQVAEResidualUnit``, ``Encoder``, ``Decoder``, ``EMAQuantizer``, ``VQVAE``):
+the stage-2 API ``encode_stage_2_inputs`` / ``decode_stage_2_outputs`` and
+``reconstruct`` that scoring and latent diffusion training use, and the
+training forward of stage 1 (``train/vqvae.py``): the commitment loss, the
+straight-through estimator and the EMA codebook update.
 
 Module names follow monai-generative's ``VQVAE``, so a reference ``.pth``
 loads with ``strict=True``: ``encoder.blocks.{b}`` and ``decoder.blocks.{b}``
@@ -14,6 +15,16 @@ are flat lists of convolutions (weights at ``.conv``) and residual units
 ``quantizer.quantizer.{embedding.weight, ema_cluster_size, ema_w}``.
 ``utils/convert.py:jax_vqvae_params_to_state_dict`` writes these keys from
 the JAX package's params.
+
+Training: the codebook is EMA state, not a parameter (the JAX package keeps
+it in the non-gradient "ema" collection), so ``embedding.weight`` is a
+buffer and no optimizer sees it. In train mode the quantizer gathers each
+forward's code counts and sums, taken with the codebook it quantized
+against; ``ema_update`` folds everything gathered since the last update
+into the EMA once, so k microbatches of a batch update the codebook exactly
+as the whole batch would. ``remat=True`` recomputes each residual unit in
+the backward pass (``torch.utils.checkpoint``), as the JAX package wraps
+``VQVAEResidualUnit`` in ``nn.remat``; it changes memory, never values.
 
 Layout: (B, C, *spatial) tensors, best in ``models.unet.memory_format``
 (channels-last). The decoder's transposed convolutions are
@@ -37,6 +48,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
@@ -65,6 +77,22 @@ class VQVAEResidualUnit(nn.Module):
         return F.relu(x + self.conv2(F.relu(self.conv1(x))))
 
 
+def _run_blocks(blocks: nn.ModuleList, relu_after: set, x: torch.Tensor,
+                remat: bool) -> torch.Tensor:
+    """The blocks in order, a ReLU after those in `relu_after`; with `remat`
+    (and autograd recording) each residual unit is recomputed in the
+    backward pass instead of keeping its activations."""
+    remat = remat and torch.is_grad_enabled()
+    for b, block in enumerate(blocks):
+        if remat and isinstance(block, VQVAEResidualUnit):
+            x = checkpoint(block, x, use_reentrant=False)
+        else:
+            x = block(x)
+        if b in relu_after:
+            x = F.relu(x)
+    return x
+
+
 class Encoder(nn.Module):
     """Per level: a strided conv (the level's (stride, kernel, dilation,
     padding)) and ReLU, then ``num_res_layers`` residual units; last, a 3x3
@@ -86,13 +114,10 @@ class Encoder(nn.Module):
         blocks.append(_Conv(_CONV[dims](ch, out_channels, 3, padding=1)))
         self.blocks = nn.ModuleList(blocks)
         self._relu_after = {i * (num_res_layers + 1) for i in range(len(num_channels))}
+        self.remat = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for b, block in enumerate(self.blocks):
-            x = block(x)
-            if b in self._relu_after:
-                x = F.relu(x)
-        return x
+        return _run_blocks(self.blocks, self._relu_after, x, self.remat)
 
 
 class Decoder(nn.Module):
@@ -122,43 +147,86 @@ class Decoder(nn.Module):
             if not last:
                 self._relu_after.add(len(blocks) - 1)
         self.blocks = nn.ModuleList(blocks)
+        self.remat = False
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        for b, block in enumerate(self.blocks):
-            z = block(z)
-            if b in self._relu_after:
-                z = F.relu(z)
-        return z
+        return _run_blocks(self.blocks, self._relu_after, z, self.remat)
+
+
+class _Codebook(nn.Module):
+    """The codebook as the buffer ``weight``: monai's ``embedding.weight``
+    key, drawn as ``nn.Embedding`` draws it (a unit normal)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int):
+        super().__init__()
+        self.register_buffer("weight", torch.randn(num_embeddings, embedding_dim))
 
 
 class EMAQuantizer(nn.Module):
     """The codebook (``embedding.weight``, (num_embeddings, embedding_dim))
-    and its EMA statistics (``ema_cluster_size``, ``ema_w``), loaded, not
-    updated: the EMA update belongs to stage-1 training, which is not ported."""
+    and its EMA statistics (``ema_cluster_size``, ``ema_w``: the JAX
+    package's ``cluster_size`` and ``embed_avg``), all buffers."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, commitment_cost: float = 0.25):
+    def __init__(self, num_embeddings: int, embedding_dim: int, commitment_cost: float = 0.25,
+                 decay: float = 0.99, epsilon: float = 1e-5):
         super().__init__()
-        self.embedding_dim, self.commitment_cost = embedding_dim, commitment_cost
-        self.embedding = nn.Embedding(num_embeddings, embedding_dim)
+        self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.commitment_cost, self.decay, self.epsilon = commitment_cost, decay, epsilon
+        self.embedding = _Codebook(num_embeddings, embedding_dim)
         self.register_buffer("ema_cluster_size", torch.zeros(num_embeddings))
-        self.register_buffer("ema_w", self.embedding.weight.data.clone())
+        self.register_buffer("ema_w", self.embedding.weight.clone())
+        # (counts, sums) gathered in train mode since the last ema_update
+        self._stats = None
 
     def forward(self, z: torch.Tensor):
         """z (B, C, *spatial) -> (quantized (z's shape and dtype), commitment
-        loss, indices (B, *spatial)), in fp32 with autocast off. The
-        quantized tensor is z + (e[idx] - z), the JAX package's
-        straight-through form, so its values round as JAX's do."""
+        loss, indices (B, *spatial)), in fp32 (fp64 for fp64 z) with
+        autocast off. The
+        quantized tensor is z + detach(e[idx] - z), the JAX package's
+        straight-through form: its values round as JAX's do, and its
+        gradient is the identity to z. The loss is commitment_cost *
+        mean((e[idx] - z)^2), whose gradient reaches z only."""
         with torch.autocast(z.device.type, enabled=False):
             zl = z.movedim(1, -1)  # (B, *spatial, C): a view for channels-last z
-            flat = zl.reshape(-1, self.embedding_dim).float()
-            e = self.embedding.weight.float()
-            dist = (torch.sum(flat ** 2, dim=1, keepdim=True) - 2.0 * (flat @ e.t())
-                    + torch.sum(e ** 2, dim=1)[None, :])
-            idx = torch.argmin(dist, dim=1)
+            flat = zl.reshape(-1, self.embedding_dim)
+            flat = flat.to(torch.promote_types(flat.dtype, torch.float32))
+            e = self.embedding.weight.to(flat.dtype)
+            with torch.no_grad():
+                dist = (torch.sum(flat ** 2, dim=1, keepdim=True) - 2.0 * (flat @ e.t())
+                        + torch.sum(e ** 2, dim=1)[None, :])
+                idx = torch.argmin(dist, dim=1)
+                if self.training:
+                    self._gather(flat, idx)
             quantized = e[idx].view(zl.shape)
-            loss = self.commitment_cost * torch.mean((quantized - zl.float()) ** 2)
-            out = zl + (quantized.to(z.dtype) - zl)
+            loss = self.commitment_cost * torch.mean((quantized - zl.to(flat.dtype)) ** 2)
+            out = zl + (quantized.to(z.dtype) - zl).detach()
         return out.movedim(-1, 1), loss, idx.view(zl.shape[:-1])
+
+    def _gather(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
+        counts = torch.bincount(idx, minlength=self.num_embeddings).to(flat.dtype)
+        sums = torch.zeros_like(self.ema_w).index_add_(0, idx, flat)
+        if self._stats is not None:
+            counts, sums = counts + self._stats[0], sums + self._stats[1]
+        self._stats = (counts, sums)
+
+    @torch.no_grad()
+    def ema_update(self) -> None:
+        """Fold the gathered counts and sums into the EMA statistics and
+        recompute the codebook from them with Laplace smoothing
+        (``ddpm_ood_tpu/models/vqvae.py``'s train branch); a no-op when
+        nothing was gathered."""
+        if self._stats is None:
+            return
+        counts, sums = self._stats
+        self._stats = None
+        d = self.decay
+        cs = d * self.ema_cluster_size + (1.0 - d) * counts
+        ea = d * self.ema_w + (1.0 - d) * sums
+        total = torch.sum(cs)
+        smoothed = (cs + self.epsilon) / (total + self.num_embeddings * self.epsilon) * total
+        self.ema_cluster_size.copy_(cs)
+        self.ema_w.copy_(ea)
+        self.embedding.weight.copy_(ea / smoothed[:, None])
 
 
 class _QuantizerWrapper(nn.Module):
@@ -174,9 +242,10 @@ class _QuantizerWrapper(nn.Module):
 
 class VQVAE(nn.Module):
     """The stage-1 model of latent diffusion. Constructor arguments are the
-    keys of the reference's ``vqvae_config.json`` (``decay``, ``epsilon``,
-    ``dropout`` and ``ddp_sync`` are accepted for the file's sake: they act
-    only in training)."""
+    keys of the reference's ``vqvae_config.json`` (``dropout`` acts only in
+    training, where ``train/vqvae.py`` refuses it, and ``ddp_sync`` is
+    accepted for the file's sake: there is one device), plus ``remat``,
+    which is not part of the file."""
 
     def __init__(
         self,
@@ -195,6 +264,7 @@ class VQVAE(nn.Module):
         epsilon: float = 1e-5,
         dropout: float = 0.0,
         ddp_sync: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         if spatial_dims not in (2, 3):
@@ -204,8 +274,9 @@ class VQVAE(nn.Module):
                                num_res_channels, num_res_layers, downsample_parameters)
         self.decoder = Decoder(spatial_dims, embedding_dim, out_channels, num_channels,
                                num_res_channels, num_res_layers, upsample_parameters)
+        self.encoder.remat = self.decoder.remat = remat
         self.quantizer = _QuantizerWrapper(
-            EMAQuantizer(num_embeddings, embedding_dim, commitment_cost))
+            EMAQuantizer(num_embeddings, embedding_dim, commitment_cost, decay, epsilon))
 
     def forward(self, images: torch.Tensor):
         """(reconstruction, commitment loss)."""

@@ -1,3 +1,4 @@
 from .ddpm import DDPMTrainStep
+from .vqvae import VQVAETrainStep, adversarial_weight
 
-__all__ = ["DDPMTrainStep"]
+__all__ = ["DDPMTrainStep", "VQVAETrainStep", "adversarial_weight"]

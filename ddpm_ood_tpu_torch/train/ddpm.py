@@ -1,11 +1,16 @@
 """DDPM training step: noising, loss, backward, Adam, weight EMA.
 
-Port of ``ddpm_ood_tpu/train/ddpm.py`` for pixel-space 2D models. One step
-is: x_t = add_noise(x0 * b_scale), the UNet's prediction, an fp32 MSE to the
-prediction type's target, gradients (optionally accumulated over equal
-microbatches), one Adam update, then the weight EMA. The JAX package fuses it
-into one jitted program; here it is eager PyTorch whose attention and
-GroupNorm go through the hand-written kernels on CUDA, backward included.
+Port of ``ddpm_ood_tpu/train/ddpm.py``, 2D and 3D, in pixel space or on
+the latents of a frozen VQ-VAE. ``prepare`` turns a batch of images into
+what the UNet trains on: the images themselves, or (latent diffusion)
+their quantized latents from ``encode_fn`` under no_grad, in fp32, padded
+by ``latent_pad`` (torch's ``F.pad`` tuple, last spatial axis first). One
+step on that x0 is: x_t = add_noise(x0 * b_scale), the UNet's prediction,
+an fp32 MSE to the prediction type's target, gradients (optionally
+accumulated over equal microbatches), one Adam update, then the weight EMA.
+The JAX package fuses it into one jitted program; here it is eager PyTorch
+whose attention and GroupNorm go through the hand-written kernels on CUDA,
+backward included.
 
 Parity choices:
   - Adam with optax's defaults (beta 0.9 / 0.999, eps 1e-8, no eps_root).
@@ -24,9 +29,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.schedules import NoiseSchedule, add_noise, training_target
@@ -42,8 +48,13 @@ def _effective_accum(k: int, batch: int) -> int:
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
-    """A 4D (B, C, H, W) tensor in torch.channels_last, the UNet's layout."""
-    return x.contiguous(memory_format=torch.channels_last) if x.dim() == 4 else x
+    """A (B, C, H, W) or (B, C, D, H, W) tensor in the UNet's channels-last
+    layout."""
+    if x.dim() == 4:
+        return x.contiguous(memory_format=torch.channels_last)
+    if x.dim() == 5:
+        return x.contiguous(memory_format=torch.channels_last_3d)
+    return x
 
 
 @dataclasses.dataclass
@@ -62,6 +73,10 @@ class DDPMTrainStep:
     grad_accum: int = 1
     # bf16 on CUDA (fp32 params, bf16 compute); None computes in fp32
     autocast_dtype: Optional[torch.dtype] = None
+    # latent diffusion: the frozen VQ-VAE's encode_stage_2_inputs on
+    # (B, C, *spatial) images, and the pad of its latents
+    encode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    latent_pad: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.learning_rate,
@@ -77,6 +92,23 @@ class DDPMTrainStep:
         if self.autocast_dtype is None:
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=self.autocast_dtype)
+
+    @torch.no_grad()
+    def prepare(self, images: torch.Tensor) -> torch.Tensor:
+        """x0 for the UNet from (B, C, *spatial) images: the images, or their
+        latents (fp32, padded), channels-last."""
+        x = images
+        if self.encode_fn is not None:
+            with self.autocast(images.device):
+                x = self.encode_fn(x)
+            x = x.float()
+        if self.latent_pad:
+            x = F.pad(x, tuple(self.latent_pad))
+        return channels_last(x)
+
+    def unpad(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``prepare``'s pad on (B, C, *spatial) latents."""
+        return F.pad(x, tuple(-p for p in self.latent_pad)) if self.latent_pad else x
 
     def loss(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """fp32 MSE of the UNet's prediction on add_noise(x0 * b_scale)."""

@@ -137,6 +137,8 @@ class BaseTrainer:
                 ema_decay=float(args.ema_decay),
                 grad_accum=int(args.grad_accum_steps or 1),
                 autocast_dtype=self.autocast_dtype,
+                encode_fn=self.vqvae.encode_stage_2_inputs if self.vqvae is not None else None,
+                latent_pad=self.latent_pad,
             )
             self.start_epoch, self.global_step, self.best_loss = 0, 0, 1000.0
             if path is not None:

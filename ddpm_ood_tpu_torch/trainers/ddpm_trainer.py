@@ -1,17 +1,22 @@
 """DDPM trainer: epoch loop, checkpoint policy, logged metrics.
 
-Port of ``ddpm_ood_tpu/trainers/ddpm_trainer.py`` for 2D pixel-space models
-with Gaussian noise, on one device:
+Port of ``ddpm_ood_tpu/trainers/ddpm_trainer.py`` for 2D and 3D models, in
+pixel space or on the latents of a frozen VQ-VAE (``--vqvae_checkpoint``,
+``--latent_pad``), with Gaussian noise, on one device:
   - the epoch loop keeps the reference's policy: the rolling ``checkpoint``
     is the best on TRAIN loss, ``checkpoint_{N}`` is written every
     ``--checkpoint_every`` epochs, validation runs every ``--eval_freq``;
-  - per step: t ~ U[0, T) and Gaussian noise from the trainer's generator,
-    then ``DDPMTrainStep.step`` (noising, MSE on the prediction type's
-    target, backward, Adam, EMA); ``global_step`` counts images;
+  - per step: the batch's x0 (``DDPMTrainStep.prepare``: the images, or
+    their padded latents), t ~ U[0, T) and Gaussian noise of x0's shape
+    from the trainer's generator, then ``DDPMTrainStep.step`` (noising, MSE
+    on the prediction type's target, backward, Adam, EMA); ``global_step``
+    counts images;
   - per-step train losses stay on the device and are read 32 at a time, so
     the host does not wait for the device at every step;
   - validation logs the mean loss and an ancestral sample grid
-    (``diffusion/ddpm.py:ddpm_sample``) saved as ``val/samples_<step>.npy``;
+    (``diffusion/ddpm.py:ddpm_sample``; 2 samples in 3D, else up to 8; a
+    latent model's samples are un-padded and decoded) saved as
+    ``val/samples_<step>.npy``;
   - ``--quick_test`` runs one batch of each loop; SIGTERM finishes the epoch,
     checkpoints and stops (``utils/preemption.py``).
 """
@@ -42,9 +47,6 @@ def refuse_unported_train_flags(args) -> None:
     """Raise NotImplementedError naming the first flag this slice does not serve."""
     refuse_flags(args, [
         ("--simplex_noise", bool(args.simplex_noise), "Gaussian noise only"),
-        ("--vqvae_checkpoint", bool(args.vqvae_checkpoint), "latent diffusion"),
-        ("--latent_pad", bool(args.latent_pad), "latent diffusion"),
-        ("--spatial_dimension", int(args.spatial_dimension) != 2, "2D only"),
         ("--fsdp", bool(args.fsdp), "one device"),
         ("--remat", bool(args.remat), ""),
         ("--profile_dir", bool(args.profile_dir), ""),
@@ -121,7 +123,7 @@ class DDPMTrainer(BaseTrainer):
             pending.clear()
 
         for batch in self.train_loader:
-            x0 = self._to_device(batch["image"])
+            x0 = self.step.prepare(self._to_device(batch["image"]))
             t, noise = self.step.draw(x0, self.generator)
             loss = self.step.step(x0, t, noise)
             bsz = x0.shape[0]
@@ -147,7 +149,7 @@ class DDPMTrainer(BaseTrainer):
         total, count = 0.0, 0
         last_batch = None
         for batch in self.val_loader:
-            x0 = self._to_device(batch["image"])
+            x0 = self.step.prepare(self._to_device(batch["image"]))
             t, noise = self.step.draw(x0, self.generator)
             total += float(self.step.eval_loss(x0, t, noise)) * x0.shape[0]
             count += x0.shape[0]
@@ -161,11 +163,13 @@ class DDPMTrainer(BaseTrainer):
         self.logger_val.flush()
 
     @torch.no_grad()
-    def sample_grid(self, images: torch.Tensor) -> np.ndarray:
-        """Ancestral samples of up to 8 images, /b_scale and clipped to
-        [0, 1], saved as (num, *spatial, C) float32 beside the val scalars."""
-        num = min(8, images.shape[0])
-        noise = channels_last(torch.randn((num,) + tuple(images.shape[1:]),
+    def sample_grid(self, x0: torch.Tensor) -> np.ndarray:
+        """Ancestral samples shaped like x0's items (2 in 3D, else up to 8),
+        un-padded and decoded by a latent model's VQ-VAE, /b_scale and
+        clipped to [0, 1], saved as (num, *spatial, C) float32 beside the
+        val scalars."""
+        num = 2 if self.spatial_dimension == 3 else min(8, x0.shape[0])
+        noise = channels_last(torch.randn((num,) + tuple(x0.shape[1:]),
                                           generator=self.generator, device=self.device))
 
         def model_fn(x, t):
@@ -173,7 +177,9 @@ class DDPMTrainer(BaseTrainer):
             return self.unet(x, t)
 
         with self.step.autocast(self.device):
-            samples = ddpm_sample(self.sched, model_fn, noise, self.generator)
+            samples = self.step.unpad(ddpm_sample(self.sched, model_fn, noise, self.generator))
+            if self.vqvae is not None:
+                samples = self.vqvae.decode_stage_2_outputs(channels_last(samples))
         grid = np.clip(np.moveaxis((samples / self.b_scale).float().cpu().numpy(), 1, -1), 0, 1)
         path = self.logger_val.add_figure("samples", grid, self.global_step)
         log.info(f"Wrote the sample grid {path}")

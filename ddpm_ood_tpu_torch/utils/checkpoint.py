@@ -9,9 +9,12 @@ optimizer_state_dict (torch Adam's own ``state_dict()``), best_loss} plus
 file, else the newest periodic one.
 
 A latent diffusion model's frozen VQ-VAE (``--vqvae_checkpoint``) is a
-``.pth`` of the same schema whose ``model_state_dict`` holds
-monai-generative ``VQVAE`` keys, with the run's ``vqvae_config.json`` (the
-model's constructor arguments) beside it: ``load_vqvae_checkpoint``.
+``.pth`` whose ``model_state_dict`` holds monai-generative ``VQVAE`` keys,
+with the run's ``vqvae_config.json`` (the model's constructor arguments)
+beside it: ``load_vqvae_checkpoint`` reads both and
+``save_vqvae_checkpoint`` writes both. The VQ-VAE trainer's files hold
+{epoch, global_step, best_loss, model_state_dict, discriminator_state_dict,
+optimizer_g_state_dict, optimizer_d_state_dict}.
 
 The JAX package's own checkpoints are Orbax directories. Reading them needs
 orbax, which the port does not use; convert them on a host with JAX
@@ -98,6 +101,27 @@ def save_checkpoint(path: str | Path, model_state_dict: dict, epoch: int = 0,
 
 
 VQVAE_CONFIG = "vqvae_config.json"
+
+
+def write_vqvae_config(run_dir: str | Path, config: dict) -> Path:
+    """``<run_dir>/vqvae_config.json`` as the JAX package writes it (indent
+    2, tuples as lists), replaced atomically."""
+    path = Path(run_dir) / VQVAE_CONFIG
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(json.dumps(config, indent=2, default=str))
+    os.replace(tmp, path)
+    return path
+
+
+def save_vqvae_checkpoint(path: str | Path, config: dict, payload: dict) -> Path:
+    """Write a VQ-VAE checkpoint that ``load_vqvae_checkpoint`` reads: the
+    ``.pth`` `payload` (its ``model_state_dict`` in monai-generative keys)
+    and `config` as ``vqvae_config.json`` beside it."""
+    if "model_state_dict" not in payload:
+        raise ValueError("a VQ-VAE checkpoint payload needs its model_state_dict")
+    write_vqvae_config(Path(path).parent, config)
+    return write_checkpoint(path, payload)
 
 
 def load_vqvae_checkpoint(path: str | Path) -> Tuple[dict, dict]:

@@ -14,8 +14,10 @@ for example an Orbax checkpoint's ``model_state_dict`` restored and turned
 into numpy on a host with JAX. Output: a flat {key: fp32 tensor} dict with
 monai-generative names, which ``DiffusionModelUNet.load_state_dict`` takes
 with ``strict=True``. ``jax_lpips_params_to_state_dict`` does the same for
-the LPIPS params that the JAX package's ``save_lpips_npz`` writes, and
-``jax_vqvae_params_to_state_dict`` for a VQ-VAE's params and EMA codebook.
+the LPIPS params that the JAX package's ``save_lpips_npz`` writes,
+``jax_vqvae_params_to_state_dict`` for a VQ-VAE's params and EMA codebook,
+and ``jax_discriminator_params_to_state_dict`` for a PatchGAN
+discriminator's params and BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -169,6 +171,26 @@ def jax_vqvae_params_to_state_dict(params: Mapping, ema: Mapping) -> Dict[str, t
         out[f"{prefix}.bias"] = np.asarray(node["bias"])
     for leaf, key in _QUANTIZER_KEYS.items():
         out[key] = np.asarray(ema["quantizer"][leaf])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def jax_discriminator_params_to_state_dict(params: Mapping, batch_stats: Mapping
+                                           ) -> Dict[str, torch.Tensor]:
+    """The JAX ``PatchDiscriminator``'s ``params`` (``layer_{i}`` /
+    ``final_conv`` kernels and biases, ``norm_{i}`` scales and biases) and
+    ``batch_stats`` (``norm_{i}`` mean and var) -> the fp32 state_dict of
+    the port's ``models.discriminator.PatchDiscriminator``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, leaves in params.items():
+        if name.startswith("norm_"):
+            out[f"{name}.weight"] = np.asarray(leaves["scale"])
+            out[f"{name}.bias"] = np.asarray(leaves["bias"])
+            out[f"{name}.running_mean"] = np.asarray(batch_stats[name]["mean"])
+            out[f"{name}.running_var"] = np.asarray(batch_stats[name]["var"])
+        else:
+            out[f"{name}.weight"] = _to_torch(leaves["kernel"], "conv")
+            if "bias" in leaves:
+                out[f"{name}.bias"] = np.asarray(leaves["bias"])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 

@@ -17,6 +17,17 @@ ARGVS = {
         "--num_workers=2", "--cache_data=0", "--checkpoint_every=1",
         "--ddpm_checkpoint_epoch=2", "--is_grayscale=1", "--quick_test=1",
     ],
+    "parse_args_train_vqvae": [
+        "--output_dir=out", "--model_name=m", "--training_ids=a.csv", "--validation_ids=b.csv",
+        "--image_size=128", "--image_roi=[160,160,128]", "--spatial_dimension=3",
+        "--vqvae_downsample_parameters=[[2,4,1,1],[2,4,1,1],[2,4,1,1],[2,4,1,1]]",
+        "--vqvae_upsample_parameters=[[2,4,1,1,0],[2,4,1,1,0],[2,4,1,1,0],[2,4,1,1,0]]",
+        "--vqvae_num_channels=[256,256,256,256]", "--vqvae_num_res_channels=[256,256,256,256]",
+        "--vqvae_embedding_dim=128", "--vqvae_num_embeddings=2048", "--vqvae_decay=0.9",
+        "--vqvae_learning_rate=3e-5", "--remat=1", "--grad_accum_steps=4", "--batch_size=8",
+        "--n_epochs=300", "--eval_freq=10", "--cache_data=0", "--adversarial_warmup=1",
+        "--is_grayscale=1", "--quick_test=1",
+    ],
     "parse_args_reconstruct": [
         "--output_dir=out", "--model_name=m", "--validation_ids=v.csv", "--in_ids=i.csv",
         "--out_ids=o.csv,i.csv_vflip", "--image_size=32", "--batch_size=8",

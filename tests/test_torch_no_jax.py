@@ -11,7 +11,9 @@ ddpm_ood_tpu_torch.quality_check --device=cpu`` trains, scores with DPM-Solver++
 and the ELBO, and prints its JSON, and building the CUDA kernels where there
 is no nvcc raises KernelBuildError instead of returning. The same holds for
 scoring a 3D latent diffusion model (``--spatial_dimension=3
---vqvae_checkpoint --latent_pad``) with fake-3D LPIPS, SSIM and error maps.
+--vqvae_checkpoint --latent_pad``) with fake-3D LPIPS, SSIM and error maps,
+and for training one: ``python -m ddpm_ood_tpu_torch.train_vqvae`` on 3D
+volumes, then the training CLI on its checkpoint.
 """
 
 import json
@@ -211,3 +213,67 @@ def test_ldm_3d_scoring_runs_without_jax(tmp_path):
     assert got["csvs"] == ["results_val.csv"]
     assert got["header"] == ",filename,type,t,perceptual_difference,mse,ssim_distance"
     assert got["error_maps"] == ["error_maps/val/vol_0.npy", "error_maps/val/vol_1.npy"]
+
+
+CHILD_TRAIN_LDM = r"""
+import json, sys
+
+BLOCKED = set(sys.argv[1].split(","))
+for name in BLOCKED:
+    sys.modules[name] = None
+
+from ddpm_ood_tpu_torch import train_ddpm, train_vqvae
+from ddpm_ood_tpu_torch.ops.attention import flash_attention_fwd
+from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
+
+vq = train_vqvae.main(json.loads(sys.argv[2]))
+ldm = train_ddpm.main(json.loads(sys.argv[3]))
+print(json.dumps({
+    "vq": [vq.global_step, vq.step.g_backwards, sorted(p.name for p in vq.run_dir.glob("*"))],
+    "ldm": [ldm.global_step, ldm.step.backwards, ldm.ddpm_channels,
+            sorted(p.name for p in ldm.run_dir.glob("*.pth"))],
+    "launches": [groupnorm_act.launches, flash_attention_fwd.launches],
+    "leaked": sorted(m for m, mod in sys.modules.items()
+                     if mod is not None and m.split(".")[0] in BLOCKED),
+}))
+"""
+
+
+def test_ldm_3d_training_runs_without_jax(tmp_path):
+    """``python -m ddpm_ood_tpu_torch.train_vqvae`` on 3D volumes, then
+    ``train_ddpm --vqvae_checkpoint --spatial_dimension=3 --latent_pad`` on
+    its checkpoint, with the JAX package and JAX itself unimportable."""
+    import numpy as np
+
+    from ddpm_ood_tpu_torch.data.csv_splits import write_split_csv
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(2):
+        paths.append(str(tmp_path / f"vol_{i}.npy"))
+        np.save(paths[-1], rng.uniform(size=(1, 16, 16, 16)).astype(np.float32))
+    write_split_csv(paths, str(tmp_path / "vols.csv"))
+    common = ["--device=cpu", f"--output_dir={tmp_path / 'output'}",
+              f"--training_ids={tmp_path / 'vols.csv'}",
+              f"--validation_ids={tmp_path / 'vols.csv'}",
+              "--spatial_dimension=3", "--image_size=16", "--is_grayscale=1", "--batch_size=2",
+              "--n_epochs=1", "--checkpoint_every=1", "--num_workers=1"]
+    vq = [*common, "--model_name=vq", "--eval_freq=1", "--vqvae_num_res_layers=1",
+          "--vqvae_downsample_parameters=((2,4,1,1),(2,4,1,1))",
+          "--vqvae_upsample_parameters=((2,4,1,1,0),(2,4,1,1,0))", "--vqvae_num_channels=[8,8]",
+          "--vqvae_num_res_channels=[8,8]", "--vqvae_num_embeddings=16",
+          "--vqvae_embedding_dim=4"]
+    ldm = [*common, "--model_name=ldm", "--eval_freq=100", "--model_type=tiny",
+           f"--vqvae_checkpoint={tmp_path / 'output' / 'vq' / 'checkpoint.pth'}",
+           "--latent_pad=(2,2,0,4,4,0)"]
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_TRAIN_LDM, ",".join(BLOCKED), json.dumps(vq),
+         json.dumps(ldm)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == [] and got["launches"] == [0, 0]
+    assert got["vq"] == [2, 1, ["checkpoint.pth", "checkpoint_1.pth", "train", "val",
+                                "vqvae_config.json"]]
+    assert got["ldm"] == [2, 1, 4, ["checkpoint.pth", "checkpoint_1.pth"]]

@@ -6,7 +6,8 @@ validation with the sample grid at epoch 2, then a resume. Checked: the
 reference checkpoint schema, the best-on-train-loss / periodic policy,
 ``epoch`` and ``global_step`` (images) across the resume, the logs, the
 scoring CLI loading the trained checkpoint, SIGTERM's graceful stop, and
-every flag the slice does not serve raising NotImplementedError.
+every flag the port does not serve raising NotImplementedError (latent
+diffusion training is tests/test_torch_ldm_train.py's).
 """
 
 import json
@@ -153,8 +154,6 @@ def test_sigterm_checkpoints_the_epoch_and_stops(tmp_path, monkeypatch):
 
 REFUSED = [
     ("--simplex_noise=1", "--simplex_noise"),
-    ("--vqvae_checkpoint=vq/checkpoint.pth", "--vqvae_checkpoint"),
-    ("--latent_pad=(0,0,1,1)", "--latent_pad"), ("--spatial_dimension=3", "--spatial_dimension"),
     ("--fsdp=1", "--fsdp"), ("--remat=1", "--remat"), ("--profile_dir=prof", "--profile_dir"),
 ]
 
