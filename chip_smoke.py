@@ -55,7 +55,21 @@ Phases, each fatal on failure:
                  run_ood_detection for elbo and mse+elbo on its CSVs. Every
                  path launches 27 GroupNorms and 4 flash forwards per UNet
                  forward (in bf16 on the cluster and tensor-core kernels).
- 10. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
+ 10. simplex  -- simplex noise, --resume, previews and --profile_dir on the
+                 scoring path: g++ builds the port's OpenSimplex library
+                 (seconds printed); one headline batch's planes, batched and
+                 serial, bit-identical; device-mode noise card against CPU
+                 (lattice hashes equal, planes within 1e-5); an fp32 small-UNet
+                 sweep on one host simplex draw, card against CPU; the scoring
+                 CLI at the main path's configuration with exact and with
+                 device noise (recons/s beside the main phase's Gaussian run,
+                 host seconds making noise and waiting for it, 27 GroupNorm and
+                 4 flash launches per forward, previews); a crash after batch
+                 1 (DDPM_OOD_TPU_CRASH_AFTER_BATCHES, exit -9) and --resume=1,
+                 each in a fresh process, the resumed CSV against an
+                 uninterrupted run's, and the resumed run's profiler trace
+                 naming the port's GroupNorm and attention kernels.
+ 11. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
                  the small UNet in 3D on (2, 128, 8, 8, 8) latents; the
                  Decathlon VQ-VAE (four 256-channel levels, 2048 codes of
                  width 128) encoding 32^3 volumes, its quantizer's indices
@@ -63,7 +77,7 @@ Phases, each fatal on failure:
                  decoder; the latent ReconProgram (encode, --latent_pad to
                  4^3, 10-step PLMS with the noise passed in, un-pad, decode,
                  fake-3D LPIPS): its (K, B) MSE and LPIPS tables.
- 11. ldm      -- the scoring CLI on a 3D latent diffusion model at the
+ 12. ldm      -- the scoring CLI on a 3D latent diffusion model at the
                  reference's Decathlon geometry (128^3 x 1 volumes, 8^3 x 128
                  latents; seeded VQ-VAE checkpoint.pth with its
                  vqvae_config.json, seeded small 3D UNet), batch 2, LPIPS from
@@ -74,7 +88,11 @@ Phases, each fatal on failure:
                  prints latent-recons/s, the device seconds of encode, UNet
                  forwards, decode and metrics tail (CUDA events), and peak
                  device memory.
- 12. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
+ 13. vqvae step, train ldm -- latent-diffusion training: one VQ-VAE +
+                 PatchGAN step and one 3D LDM step card against CPU; then
+                 train_vqvae and train_ddpm --vqvae_checkpoint at the
+                 Decathlon geometry and the scoring CLI on both checkpoints.
+ 14. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
@@ -82,11 +100,18 @@ Phases, each fatal on failure:
                  GroupNorm on the cluster kernel, every flash forward, dK/dV
                  and dQ on tensor cores), and that the scoring CLI
                  loads the trained checkpoint.pth.
+ 15. train remat -- one fp32 step with and without remat on the card (equal
+                 gradients within 1e-5 of each tensor's largest value, remat's
+                 launch counts from the block structure); the training CLI
+                 with --simplex_noise=1, without and with --remat=1 (images/s
+                 and peak memory side by side, launch counts), the second's
+                 --profile_dir trace naming the port's kernels.
 
 Launch counts are set to 0 just before each CLI run (scoring, the samplers'
-scoring, the two latent scoring runs, training) and read just after. The line before the
-last is a JSON summary of the kernels; the last line is {"ok": true,
-"device": {...}}. The script imports no JAX.
+scoring, the two simplex scoring runs, the two latent scoring runs, the
+training runs) and read just after. The line before the last is a JSON
+summary of the kernels; the last line is {"ok": true, "device": {...}}. The
+script imports no JAX.
 """
 
 from __future__ import annotations
@@ -418,10 +443,27 @@ METRICS_TOL = 1e-4
 OOD_TARGETS = ("mse", "perceptual_difference", "mse+perceptual", "ssim_distance")
 
 
-def seeded_unet(seed: int, preset: str = "small"):
+def seeded_unet(seed: int, preset: str = "small", remat: bool = False):
     from ddpm_ood_tpu_torch.models.unet import make_unet, random_init_
 
-    return random_init_(make_unet(preset, 2, 1, 1), torch.Generator().manual_seed(seed))
+    return random_init_(make_unet(preset, 2, 1, 1, remat=remat),
+                        torch.Generator().manual_seed(seed))
+
+
+def remat_launches(model) -> tuple:
+    """(GroupNorm, flash forward) launches that remat adds to a backward
+    pass, from the block structure: each res block's 2 GroupNorms and each
+    attention block's GroupNorm and flash forward run again; the output
+    head's GroupNorm is outside every block. Checks GN_PER_FORWARD against
+    the same count."""
+    from ddpm_ood_tpu_torch.models.unet import AttentionBlock, ResnetBlock
+
+    n_res = sum(isinstance(m, ResnetBlock) for m in model.modules())
+    n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    if (2 * n_res + n_attn + 1, n_attn) != (GN_PER_FORWARD, ATTN_PER_FORWARD):
+        raise PhaseError(f"{n_res} res and {n_attn} attention blocks do not give "
+                         f"{GN_PER_FORWARD} GroupNorms and {ATTN_PER_FORWARD} flash a forward")
+    return 2 * n_res + n_attn, n_attn
 
 
 def phase_forward(dev: torch.device) -> None:
@@ -617,9 +659,18 @@ def phase_metrics(dev: torch.device, npz: Path) -> dict:
     return summary
 
 
-def phase_main(dev: torch.device, root: Path, npz: Path) -> dict:
+def _rates(batch_times) -> dict:
+    """recons/s over all batches, and over batches 2 on (warm)."""
+    n_all, s_all = (sum(v) for v in zip(*batch_times))
+    warm = batch_times[1:] or batch_times
+    n_warm, s_warm = (sum(v) for v in zip(*warm))
+    return {"all": n_all / s_all, "warm": n_warm / s_warm}
+
+
+def phase_main(dev: torch.device, root: Path, npz: Path) -> tuple:
     """The scoring CLI at the main path's configuration, writing its CSVs and
-    error maps under `root` (phase_ood reads them)."""
+    error maps under `root` (phase_ood reads them); returns its launches and
+    recons/s."""
     from ddpm_ood_tpu_torch import reconstruct as cli
     from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
     from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
@@ -684,16 +735,13 @@ def phase_main(dev: torch.device, root: Path, npz: Path) -> dict:
         log(f"  error_maps/{name}: {len(maps)} finite (32, 32, 1) maps, mean "
             f"{float(np.mean(arrays)):.4e}")
 
-    n_all = sum(n for n, _ in recon.batch_times)
-    s_all = sum(s for _, s in recon.batch_times)
-    n_warm = sum(n for n, _ in recon.batch_times[1:])
-    s_warm = sum(s for _, s in recon.batch_times[1:])
+    rates = _rates(recon.batch_times)
     log(f"main: batches (recons, s) = {[(n, round(s, 3)) for n, s in recon.batch_times]}")
-    log(f"main: {n_all / s_all:.2f} recons/s over all {len(recon.batch_times)} batches; "
-        f"{n_warm / s_warm:.2f} recons/s over batches 2-{len(recon.batch_times)}; "
+    log(f"main: {rates['all']:.2f} recons/s over all {len(recon.batch_times)} batches; "
+        f"{rates['warm']:.2f} recons/s over batches 2-{len(recon.batch_times)}; "
         f"CLI wall {wall:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, rates
 
 
 def phase_ood(root: Path) -> dict:
@@ -1271,15 +1319,18 @@ def read_launches() -> dict:
             "groupnorm_act_cluster": fns["groupnorm_act"].cluster_launches}
 
 
-def _fp32_step_launches(forwards: int, backwards: int) -> dict:
-    """The launch counts of fp32 UNet training: GroupNorm on the cluster
-    kernel, attention on the CUDA-core kernels."""
-    return {"groupnorm_act": GN_PER_FORWARD * forwards,
-            "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
+def _step_launches(forwards: int, backwards: int, bf16: bool, remat: tuple = (0, 0)) -> dict:
+    """The launch counts of UNet training: GroupNorm on the cluster kernel;
+    attention on tensor cores in bf16, on the CUDA-core kernels in fp32.
+    `remat` is ``remat_launches``'s (GroupNorm, flash forward) recomputed per
+    backward."""
+    gn = GN_PER_FORWARD * forwards + remat[0] * backwards
+    want = {"groupnorm_act": gn, "groupnorm_act_cluster": gn,
+            "flash_attention_fwd": ATTN_PER_FORWARD * forwards + remat[1] * backwards,
             "flash_attention_bwd_dkv": ATTN_PER_FORWARD * backwards,
-            "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards,
-            "flash_attention_fwd_tc": 0, "flash_attention_bwd_dkv_tc": 0,
-            "flash_attention_bwd_dq_tc": 0, "groupnorm_act_cluster": GN_PER_FORWARD * forwards}
+            "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards}
+    want.update({f"{name}_tc": want[name] if bf16 else 0 for name in TC_COUNTED})
+    return want
 
 
 def _grad_errs(g_cpu: dict, g_gpu: dict) -> tuple:
@@ -1328,7 +1379,7 @@ def phase_train_step(dev: torch.device, preset: str = "small", size: int = 32) -
         out[device.type] = (loss.item(), {n: None if p.grad is None else p.grad.cpu()
                                           for n, p in model.named_parameters()})
         counts = read_launches()
-    want = _fp32_step_launches(1, 1)
+    want = _step_launches(1, 1, bf16=False)
     if counts != want:
         raise PhaseError(f"one training step launched {counts}, expected {want}")
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
@@ -1388,14 +1439,9 @@ def phase_train(dev: torch.device) -> dict:
 
         steps = 2 * TRAIN_STEPS_PER_EPOCH
         forwards = trainer.step.forwards + trainer.sample_forwards
-        want = {"groupnorm_act": GN_PER_FORWARD * forwards,
-                "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
-                "flash_attention_bwd_dkv": ATTN_PER_FORWARD * trainer.step.backwards,
-                "flash_attention_bwd_dq": ATTN_PER_FORWARD * trainer.step.backwards}
         # bf16 autocast: every flash kernel on tensor cores, every GroupNorm
         # on the cluster kernel
-        want.update({f"{name}_tc": want[name] for name in TC_COUNTED})
-        want["groupnorm_act_cluster"] = want["groupnorm_act"]
+        want = _step_launches(forwards, trainer.step.backwards, bf16=True)
         log(f"train: {trainer.step.backwards} training steps, {trainer.step.forwards} train/eval "
             f"UNet forwards + {trainer.sample_forwards} sampler forwards; launches {launches}")
         if trainer.step.backwards != steps or trainer.sample_forwards != 1000:
@@ -1590,7 +1636,7 @@ def phase_vqvae_step(dev: torch.device, npz: Path) -> None:
         ldm[side] = (x0.cpu(), loss.item(),
                      {n: None if p.grad is None else p.grad.cpu()
                       for n, p in unet.named_parameters()}, read_launches())
-    want = _fp32_step_launches(1, 1)
+    want = _step_launches(1, 1, bf16=False)
     if ldm["cuda"][3] != want:
         raise PhaseError(f"one 3D LDM training step launched {ldm['cuda'][3]}, expected {want}")
     image_ties = torch.from_numpy(ties.reshape(VQ_STEP_BATCH, -1).any(-1))
@@ -1690,12 +1736,7 @@ def phase_train_ldm(dev: torch.device, root: Path) -> dict:
     ldm_peak = torch.cuda.max_memory_allocated() / 2**30
     ldm_steps = 2 * math.ceil(TRAIN_LDM_VOLUMES / 6)
     forwards = ldm.step.forwards + ldm.sample_forwards
-    want = {"groupnorm_act": GN_PER_FORWARD * forwards,
-            "flash_attention_fwd": ATTN_PER_FORWARD * forwards,
-            "flash_attention_bwd_dkv": ATTN_PER_FORWARD * ldm.step.backwards,
-            "flash_attention_bwd_dq": ATTN_PER_FORWARD * ldm.step.backwards}
-    want.update({f"{name}_tc": want[name] for name in TC_COUNTED})
-    want["groupnorm_act_cluster"] = want["groupnorm_act"]
+    want = _step_launches(forwards, ldm.step.backwards, bf16=True)
     log(f"train_ldm: {ldm.step.backwards} LDM training steps, {ldm.step.forwards} train/eval "
         f"UNet forwards + {ldm.sample_forwards} sampler forwards; launches {launches}")
     if ldm.step.backwards != ldm_steps or ldm.sample_forwards != 1000 or launches != want:
@@ -1756,6 +1797,335 @@ def phase_train_ldm(dev: torch.device, root: Path) -> dict:
     return launches
 
 
+# simplex noise on the scoring path: the headline configuration (MAIN_ARGS
+# with --score_ssim=1 --save_error_maps=1, phase_main's data and weights)
+# with exact host noise and with on-device noise; phase_main's run is the
+# Gaussian one
+SIMPLEX_MODES = (("exact", ["--simplex_noise=1"]),
+                 ("device", ["--simplex_noise=1", "--simplex_noise_mode=device"]))
+DEVICE_NOISE_TOL = 1e-5  # simplex_noise_device planes of ~1, fp32 card vs CPU
+# crash and resume: the headline model on a shorter grid (PLMS 20/2), 2
+# batches of 32; the resumed CSV against an uninterrupted run's, each column
+# to RESUME_TOL of its largest value (bf16 autocast in both; 0 when the two
+# processes compute alike)
+RESUME_ARGS = [a for a in MAIN_ARGS if not a.startswith(("--num_inference_steps",
+                                                         "--inference_skip_factor"))] + [
+    "--num_inference_steps=20", "--inference_skip_factor=2"]
+RESUME_TOL = 1e-3
+# a --profile_dir trace must name these port kernels
+TRACE_KERNELS = ("groupnorm_act_cluster_kernel", "flash_fwd_tc_kernel")
+
+
+def _trace_kernels(path: Path, names) -> dict:
+    """{name: events whose name contains it} in a Chrome trace; fails on a
+    missing or empty trace, or a kernel it does not name."""
+    if not path.is_file() or path.stat().st_size == 0:
+        raise PhaseError(f"no profiler trace at {path}")
+    events = json.loads(path.read_text())["traceEvents"]
+    found = {n: sum(n in e.get("name", "") for e in events) for n in names}
+    if not all(found.values()):
+        raise PhaseError(f"{path.name} names no {[n for n, c in found.items() if not c]}")
+    return found
+
+
+def _read_rows(path: Path) -> dict:
+    with open(path, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    keyed = {(r["filename"], int(r["t"])): r for r in rows}
+    if len(keyed) != len(rows):
+        raise PhaseError(f"{path.name}: duplicate (filename, t) rows")
+    return keyed
+
+
+def phase_simplex_resume(dev: torch.device, root: Path, gaussian: dict) -> dict:
+    """Simplex noise, --resume, previews and --profile_dir on the scoring
+    path: the OpenSimplex build and its batched planes against the serial
+    loop; device-mode noise card against CPU; an fp32 sweep on one host
+    simplex draw card against CPU; the scoring CLI at the headline with
+    exact and device noise beside phase_main's Gaussian run (`gaussian`,
+    its recons/s); a crash after batch 1 and a resume in fresh processes,
+    the second traced. Returns the two simplex runs' launch counts."""
+    from bench_attention import time_cuda
+    from ddpm_ood_tpu_torch import reconstruct as cli
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.noise import _native
+    from ddpm_ood_tpu_torch.noise.simplex import (Simplex, _hash3, generate_simplex_noise,
+                                                  simplex_noise_device)
+    from ddpm_ood_tpu_torch.recon.sweep import ReconProgram, group_t_starts
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    _native.LIB_PATH.unlink(missing_ok=True)
+    _native.library.cache_clear()
+    t1 = time.perf_counter()
+    _native.library()
+    log(f"simplex: g++ -O3 -fopenmp built {_native.LIB_PATH.relative_to(ROOT)} from "
+        f"{_native.SRC.relative_to(ROOT)} in {time.perf_counter() - t1:.2f} s")
+
+    # one headline batch's draw: 25 start points x 32 images, batched and serial
+    ts = pndm_timesteps(1000, 100)
+    t_starts = pndm_start_points(ts, 4)
+    k = len(t_starts)
+    shape = (N_IMAGES, 32, 32, 1)
+    np.random.seed(0)
+    simplex = Simplex()
+    t1 = time.perf_counter()
+    batched = np.stack([generate_simplex_noise(simplex, shape, np.full(N_IMAGES, t))
+                        for t in t_starts])
+    host_s = time.perf_counter() - t1
+    np.random.seed(0)
+    simplex = Simplex()
+    serial = np.empty_like(batched)
+    t1 = time.perf_counter()
+    for i, t in enumerate(t_starts):
+        for j in range(N_IMAGES):  # one channel: (channel, item) order is item order
+            simplex.newSeed()
+            serial[i, j, ..., 0] = simplex.rand_3d_fixed_T_octaves((32, 32), t, 6, 0.8, 64)[0]
+    serial_s = time.perf_counter() - t1
+    if batched.tobytes() != serial.tobytes():
+        raise PhaseError("batched OpenSimplex planes differ from the serial loop's")
+    log(f"simplex: one headline batch's host draw {batched.shape} ({k * N_IMAGES} planes of "
+        f"32x32, 6 octaves): batched {host_s * 1e3:.1f} ms, serial loop {serial_s * 1e3:.1f} ms, "
+        f"bit-identical; {os.cpu_count()} host CPUs")
+
+    # device mode, card against CPU: the lattice hashes equal, the planes close
+    grid = torch.stack(torch.meshgrid(*(torch.arange(-20, 20),) * 3, indexing="ij")).reshape(3, -1)
+    seed = torch.tensor(3_000_000_000)
+    hashes = [_hash3(*(g.to(d) for g in grid), seed.to(d)).cpu()
+              for d in (torch.device("cpu"), dev)]
+    if not torch.equal(*hashes):
+        raise PhaseError("simplex_noise_device's lattice hash differs on the card")
+    seeds = torch.from_numpy(np.random.default_rng(1).integers(0, 2**31 - 1, k))
+    lanes_t = torch.as_tensor(t_starts)[:, None].expand(k, N_IMAGES)
+    planes = {side: simplex_noise_device(seeds.to(d), shape, lanes_t.to(d)).cpu()
+              for side, d in (("cpu", torch.device("cpu")), ("card", dev))}
+    err = (planes["card"] - planes["cpu"]).abs().max().item()
+    ms = time_cuda(lambda: simplex_noise_device(seeds.to(dev), shape, lanes_t.to(dev)), iters=5)
+    log(f"simplex: device-mode noise {tuple(planes['cpu'].shape)} card vs CPU: {grid.shape[1]} "
+        f"lattice hashes equal, planes max_abs_err={err:.3e} tol={DEVICE_NOISE_TOL:.0e}; "
+        f"{ms:.3f} ms of device time a headline batch")
+    if not (math.isfinite(err) and err <= DEVICE_NOISE_TOL):
+        raise PhaseError(f"simplex_noise_device on the card disagrees with the CPU: {err}")
+
+    # an fp32 sweep on one host simplex draw, card against CPU
+    models = {"cpu": seeded_unet(1).to(memory_format=torch.channels_last).eval(),
+              "card": seeded_unet(1).to(dev, memory_format=torch.channels_last).eval()}
+    images = np.random.default_rng(2).uniform(size=(2, 32, 32, 1)).astype(np.float32)
+    mse = {}
+    for side, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        prog = ReconProgram(sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195,
+                                                device=device),
+                            model_fn=models[side], device=device, num_inference_steps=10,
+                            inference_skip_factor=3, num_groups=2)
+        if side == "cpu":
+            np.random.seed(5)
+            noise = np.stack([generate_simplex_noise(Simplex(), images.shape, np.full(2, t))
+                              for t in prog.t_starts])
+        prog.host_noise_fn = lambda shape, ts: noise
+        mse[side] = prog(images)[1].cpu()
+        prog.close()
+    err = ((mse["card"] - mse["cpu"]).abs() / mse["cpu"].abs().clamp_min(1e-6)).max().item()
+    log(f"simplex: fp32 sweep on one host simplex draw {noise.shape}, MSE table card vs CPU "
+        f"max_rel_err={err:.3e} tol={FWD_TOL:.0e}")
+    if not (math.isfinite(err) and err <= FWD_TOL):
+        raise PhaseError(f"simplex sweep MSE on the card disagrees with the CPU: {err}")
+
+    # the scoring CLI at the headline: exact and device noise
+    per_batch = sum(len(st) for st, _ in group_t_starts(ts, t_starts, 16))
+    launches, summary = {}, {"gaussian": gaussian}
+    for mode, flags in SIMPLEX_MODES:
+        out = root / f"output_simplex_{mode}"
+        (out / SMOKE_MODEL).mkdir(parents=True)
+        save_checkpoint(out / SMOKE_MODEL / "checkpoint.pth", seeded_unet(0).state_dict())
+        argv = [f"--output_dir={out}", f"--model_name={SMOKE_MODEL}",
+                f"--validation_ids={root / 'val.csv'}", f"--in_ids={root / 'in.csv'}",
+                f"--out_ids={root / 'checkerboard_test.csv'}", "--device=cuda", *MAIN_ARGS,
+                "--score_ssim=1", "--save_error_maps=1", *flags]
+        log(f"simplex: python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
+        args = cli.parse_args(argv)
+        np.random.seed(0)
+        reset_launches()
+        t1 = time.perf_counter()
+        recon = cli.Reconstruct(args, cli.resolve_device(args.device))
+        prog = recon._program(args.inference_skip_factor)
+        timer = _DeviceTimer()
+        if prog.simplex_noise_fn is not None:
+            prog.simplex_noise_fn = timer.wrap("noise", prog.simplex_noise_fn)
+        recon.reconstruct(args)
+        device_noise_s = timer.seconds().get("noise", 0.0)
+        wall = time.perf_counter() - t1
+        counts = read_launches()
+        for name, value in counts.items():
+            launches[name] = launches.get(name, 0) + value
+        evals = prog.model_evals
+        if evals != 3 * per_batch:
+            raise PhaseError(f"simplex {mode}: {evals} UNet forwards, expected {3 * per_batch}")
+        _check_launches(counts, evals, f"simplex {mode} scoring CLI", bf16=True)
+        for name in ("val", "in", "checkerboard"):
+            _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
+        previews = sorted(p.name for p in recon.out_dir.glob("preview_*.npy"))
+        grid_shape = np.load(recon.out_dir / "preview_val.npy").shape
+        if previews != ["preview_in.npy", "preview_out_3.npy", "preview_val.npy"] or \
+                grid_shape != (2, 8, 32, 32, 1):
+            raise PhaseError(f"simplex {mode}: previews {previews} {grid_shape}")
+        rates = _rates(recon.batch_times)
+        summary[mode] = {**rates, "host_noise_s": prog.host_noise_seconds,
+                         "host_noise_wait_s": prog.host_noise_wait_seconds,
+                         "device_noise_s": device_noise_s, "batches": len(recon.batch_times)}
+        log(f"simplex: {mode} batches (recons, s) = "
+            f"{[(n, round(s, 3)) for n, s in recon.batch_times]}; {GN_PER_FORWARD} GroupNorm "
+            f"and {ATTN_PER_FORWARD} flash launches per forward; previews {previews}")
+        log(f"simplex: {mode} {rates['all']:.2f} recons/s over all batches, {rates['warm']:.2f} "
+            f"over batches 2-3 (Gaussian, phase main: {gaussian['all']:.2f}, "
+            f"{gaussian['warm']:.2f}); host seconds making noise {prog.host_noise_seconds:.3f}, "
+            f"waited on it {prog.host_noise_wait_seconds:.3f}; device noise seconds "
+            f"{device_noise_s:.3f}; CLI wall {wall:.1f} s; card {CARD}")
+
+    # crash after batch 1, then --resume=1, each in a fresh process
+    rng = np.random.default_rng(6)
+    val = _write_split(root, "resume_val", 2 * N_IMAGES, False, rng)
+    common = [f"--model_name={SMOKE_MODEL}", f"--validation_ids={val}", f"--in_ids={val}",
+              f"--out_ids={val}", "--run_in=0", "--run_out=0", "--device=cuda", *RESUME_ARGS]
+    for name in ("output_uninterrupted", "output_resumed"):
+        (root / name / SMOKE_MODEL).mkdir(parents=True)
+        save_checkpoint(root / name / SMOKE_MODEL / "checkpoint.pth", seeded_unet(0).state_dict())
+    want = cli.main([f"--output_dir={root / 'output_uninterrupted'}", *common])
+    k_resume = len(next(iter(want._programs.values())).t_starts)
+    cmd = [sys.executable, "-m", "ddpm_ood_tpu_torch.reconstruct",
+           f"--output_dir={root / 'output_resumed'}", *common, "--resume=1"]
+    ood = root / "output_resumed" / SMOKE_MODEL / "ood"
+    crash = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                           env={**os.environ, "DDPM_OOD_TPU_CRASH_AFTER_BATCHES": "1"})
+    partial = ood / ".results_val.partial.csv"
+    rows = len(_read_rows(partial)) if partial.is_file() else 0
+    log(f"simplex: the crashing run exited {crash.returncode} with {rows} rows in {partial.name}")
+    if crash.returncode != -9 or rows != N_IMAGES * k_resume:
+        raise PhaseError(f"crash run: exit {crash.returncode}, {rows} rows persisted (expected -9, "
+                         f"{N_IMAGES * k_resume}): {crash.stderr[-2000:]}")
+    prof = root / "prof_scoring"
+    resumed = subprocess.run(cmd + [f"--profile_dir={prof}"], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+    said = f"resume: skipped {N_IMAGES} already-scored images for 'val'"
+    if resumed.returncode != 0 or said not in resumed.stdout + resumed.stderr:
+        raise PhaseError(f"resumed run: exit {resumed.returncode}: {resumed.stderr[-3000:]}")
+    got = _read_rows(ood / "results_val.csv")
+    ref = _read_rows(want.out_dir / "results_val.csv")
+    if sorted(got) != sorted(ref) or len(got) != 2 * N_IMAGES * k_resume or partial.exists():
+        raise PhaseError(f"resumed CSV: {len(got)} rows, keys equal {sorted(got) == sorted(ref)}")
+    errs = {}
+    for col in ("mse", "perceptual_difference"):
+        diff = max(abs(float(got[key][col]) - float(r[col])) for key, r in ref.items())
+        errs[col] = diff / max(abs(float(r[col])) for r in ref.values())
+    log(f"simplex: resumed CSV {len(got)} rows, the uninterrupted run's (filename, t) keys, no "
+        f"duplicates; max difference over each column's largest value {errs} "
+        f"(tol {RESUME_TOL:.0e}; {'exactly equal' if not any(errs.values()) else 'not equal'})")
+    if not all(math.isfinite(e) and e <= RESUME_TOL for e in errs.values()):
+        raise PhaseError(f"the resumed CSV differs from the uninterrupted run's: {errs}")
+    found = _trace_kernels(prof / "scoring_val_batch1.pt.trace.json", TRACE_KERNELS)
+    log(f"simplex: the resumed run's --profile_dir trace of batch 1 names {found}")
+    summary["resume"] = {"rows": len(got), "max_rel_diff": errs, "trace_kernel_events": found}
+    summary["card"] = CARD
+    log(json.dumps({"simplex": summary}))
+    log(f"simplex: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+REMAT_GRAD_TOL = 1e-5  # fp32 gradients with and without remat, of each tensor's largest
+
+
+def phase_train_remat(dev: torch.device) -> dict:
+    """The training path's remat and simplex leg: one fp32 step with and
+    without remat on the card (the same gradients, remat's launch counts);
+    then the training CLI with --simplex_noise=1, without and with
+    --remat=1 (the second with --profile_dir), images/s and peak memory side
+    by side, launch counts from the block structure. Returns each run's
+    launch counts by path."""
+    from ddpm_ood_tpu_torch import train_ddpm
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.train.ddpm import DDPMTrainStep
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    x0 = torch.from_numpy(rng.uniform(size=(4, 1, 32, 32)).astype(np.float32)).to(dev)
+    noise = torch.from_numpy(rng.standard_normal((4, 1, 32, 32)).astype(np.float32)).to(dev)
+    t = torch.tensor([3, 250, 600, 999], device=dev)
+    grads = {}
+    for remat in (False, True):
+        model = seeded_unet(2, remat=remat).to(dev, memory_format=torch.channels_last)
+        step = DDPMTrainStep(model=model, sched=make_schedule("scaled_linear_beta", 1000, 0.0015,
+                                                              0.0195, device=dev))
+        reset_launches()
+        step.grads(x0, noise, t)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        want = _step_launches(1, 1, bf16=False, remat=remat_launches(model) if remat else (0, 0))
+        if counts != want:
+            raise PhaseError(f"fp32 step (remat={remat}) launched {counts}, expected {want}")
+        grads[remat] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    # the key biases' gradients are 0 in exact arithmetic (_grad_errs): held
+    # to REMAT_GRAD_TOL of the largest gradient instead
+    worst, worst_name, shift_free, scale = _grad_errs(
+        {n: g.cpu() for n, g in grads[False].items()}, {n: g.cpu() for n, g in grads[True].items()})
+    log(f"train_remat: fp32 step on the card, {len(grads[False])} gradients with remat against "
+        f"without: worst {worst:.3e} ({worst_name}) of the tensor's largest, tol "
+        f"{REMAT_GRAD_TOL:.0e}; key-bias gradients at most {shift_free:.3e} against a largest "
+        f"gradient of {scale:.3e}; launches {counts}")
+    if not (math.isfinite(worst) and worst <= REMAT_GRAD_TOL
+            and shift_free <= REMAT_GRAD_TOL * scale):
+        raise PhaseError(f"remat changes the gradients on the card: {worst_name} {worst}, key "
+                         f"bias {shift_free}")
+
+    paths, rates = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        rng = np.random.default_rng(1)
+        train_csv = _write_split(root, "train", TRAIN_BATCH * TRAIN_STEPS_PER_EPOCH, False, rng)
+        val_csv = _write_split(root, "val", TRAIN_BATCH, False, rng)
+        for remat in (0, 1):
+            path = "train_remat" if remat else "train_simplex"
+            argv = [f"--output_dir={root / path}", "--model_name=smoke_fashionmnist",
+                    f"--training_ids={train_csv}", f"--validation_ids={val_csv}",
+                    "--device=cuda", *TRAIN_ARGS, "--eval_freq=100", "--simplex_noise=1",
+                    f"--remat={remat}"] + ([f"--profile_dir={root / 'prof'}"] if remat else [])
+            log("train_remat: python -m ddpm_ood_tpu_torch.train_ddpm " + " ".join(argv))
+            np.random.seed(0)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # by earlier phases' live objects
+            reset_launches()
+            trainer = train_ddpm.main(argv)
+            torch.cuda.synchronize()
+            paths[path] = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            own = peak - held / 2**30
+            want = _step_launches(trainer.step.forwards, trainer.step.backwards, bf16=True,
+                                  remat=remat_launches(trainer.unet) if remat else (0, 0))
+            losses = _scalars(trainer.run_dir / "train" / "scalars.jsonl")["loss"]
+            log(f"train_remat: {path}: {trainer.step.backwards} steps, {trainer.step.forwards} "
+                f"forwards; launches {paths[path]}; losses {[round(v, 5) for v in losses]}")
+            if paths[path] != want:
+                raise PhaseError(f"{path}: launches {paths[path]} != expected {want}")
+            if len(losses) != 2 * TRAIN_STEPS_PER_EPOCH or not all(map(math.isfinite, losses)):
+                raise PhaseError(f"{path}: losses {losses}")
+            (n0, s0), (n1, s1) = trainer.epoch_times
+            rates[path] = {"images_per_s": n1 / s1, "images_per_s_epoch1": n0 / s0,
+                           "peak_gib": peak, "peak_above_start_gib": own}
+        found = _trace_kernels(trainer.profile_path, TRACE_KERNELS + ("flash_bwd_dkv_tc_kernel",
+                                                                    "flash_bwd_dq_tc_kernel"))
+        log(f"train_remat: --profile_dir trace of steps 2-4 {trainer.profile_path.name} "
+            f"names {found}")
+    a, b = rates["train_simplex"], rates["train_remat"]
+    log(f"train_remat: simplex noise, batch {TRAIN_BATCH}: without remat {a['images_per_s']:.1f} "
+        f"images/s in epoch 2 ({a['images_per_s_epoch1']:.1f} in epoch 1), peak device memory "
+        f"{a['peak_gib']:.2f} GiB ({a['peak_above_start_gib']:.2f} above what was allocated at "
+        f"its start); with remat {b['images_per_s']:.1f} ({b['images_per_s_epoch1']:.1f}), peak "
+        f"{b['peak_gib']:.2f} GiB ({b['peak_above_start_gib']:.2f}); card {CARD}")
+    log(json.dumps({"train_remat": {**rates, "remat_grad_max_rel_err": worst, "card": CARD}}))
+    log(f"train_remat: phase took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -1770,30 +2140,32 @@ def main() -> int:
             npz = _write_lpips_npz(root / "lpips.npz")
             os.environ["LPIPS_WEIGHTS_NPZ"] = str(npz)  # both scoring CLI runs read it
             phase_metrics(dev, npz)
-            score = phase_main(dev, root, npz)
+            score, gaussian = phase_main(dev, root, npz)
             phase_ood(root)
             samplers = phase_samplers(dev, root)
+            simplex = phase_simplex_resume(dev, root, gaussian)
             phase_ldm_pieces(dev, npz)
             ldm = phase_ldm(dev, root)
             phase_vqvae_step(dev, npz)
             train_ldm = phase_train_ldm(dev, root)
             train = phase_train(dev)
+            remat = phase_train_remat(dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    paths = {"score": score, "samplers": samplers, "simplex": simplex, "ldm": ldm,
+             "train": train, "train_ldm": train_ldm, **remat}
     kernels = []
     for name, (src, tpu) in KERNELS.items():
-        by_path = {"score": score.get(name, 0), "samplers": samplers.get(name, 0),
-                   "ldm": ldm.get(name, 0), "train": train[name], "train_ldm": train_ldm[name]}
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         row = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in TC_COUNTED:
-            row["tensor_core_launches"] = sum(p[f"{name}_tc"]
-                                              for p in (score, samplers, ldm, train, train_ldm))
+            row["tensor_core_launches"] = sum(p.get(f"{name}_tc", 0) for p in paths.values())
         if name == "groupnorm_act":
-            row["cluster_launches"] = sum(p["groupnorm_act_cluster"]
-                                          for p in (score, samplers, ldm, train, train_ldm))
+            row["cluster_launches"] = sum(p.get("groupnorm_act_cluster", 0)
+                                          for p in paths.values())
         kernels.append({**row, **summary[name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

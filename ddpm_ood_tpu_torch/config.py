@@ -6,8 +6,10 @@ JAX package's ``train_ddpm.py``, ``train_vqvae.py``, ``reconstruct.py`` and
 ``parse_args_ood_detection``: the port imports nothing of the JAX package.
 Tuple-ish flags are parsed with ast.literal_eval like the reference.
 
-Flags a slice of the port does not serve are still parsed here; the CLI that
-reads them raises NotImplementedError naming the flag.
+Flags the port does not serve (``--quantize`` other than none, ``--aot_cache``,
+``--fsdp``) are still parsed here; the CLI that reads them raises
+NotImplementedError naming the flag. ``--profile_dir`` writes a
+``torch.profiler`` trace where the JAX CLIs write a ``jax.profiler`` one.
 """
 
 from __future__ import annotations
@@ -141,8 +143,8 @@ def parse_args_train_ddpm(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--profile_dir", default=None,
-        help="Capture a jax.profiler device trace of a few warm train steps into "
-        "this directory (framework extension; TensorBoard-loadable).",
+        help="Write a torch.profiler trace of warm train steps 2-4 into this "
+        "directory (Chrome JSON).",
     )
     return parser.parse_args(argv)
 
@@ -340,9 +342,8 @@ def parse_args_reconstruct(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--profile_dir", default=None,
-        help="Capture a jax.profiler device trace of one warm (already-"
-        "compiled) sweep batch into this directory (framework extension; "
-        "TensorBoard-loadable).",
+        help="Write a torch.profiler trace of one warm sweep batch (batch 1 of "
+        "the first dataset pass) into this directory (Chrome JSON).",
     )
     parser.add_argument(
         "--use_ema", type=int, default=0,

@@ -19,6 +19,12 @@ accelerator.
 Numerics that differ from torch defaults on purpose: GroupNorm eps is 1e-6,
 the downsample pads (1, 1) at stride 2 (torch ``padding=1``), the timestep
 embedding puts sin before cos with width ``num_channels[0]``.
+
+``remat=True`` recomputes every res and attention block in the backward
+pass (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
+them in ``nn.remat``: a block keeps only its inputs for the backward, and
+runs its forward again there, GroupNorm and flash kernels included. It
+changes memory and time, never values, and does nothing without gradients.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.groupnorm import groupnorm_act
@@ -89,7 +96,19 @@ class _Conv(nn.Module):
         return self.conv(x)
 
 
-class ResnetBlock(nn.Module):
+class _Remat(nn.Module):
+    """A block whose forward is recomputed in the backward pass when
+    ``remat`` is set and gradients are on (``make_unet(..., remat=True)``)."""
+
+    remat = False
+
+    def __call__(self, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(super().__call__, *args, use_reentrant=False)
+        return super().__call__(*args)
+
+
+class ResnetBlock(_Remat):
     def __init__(self, dims: int, in_ch: int, out_ch: int, temb_ch: int, norm_num_groups: int):
         super().__init__()
         self.norm1 = FusedGroupNormAct(norm_num_groups, in_ch, act="silu")
@@ -109,7 +128,7 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
-class AttentionBlock(nn.Module):
+class AttentionBlock(_Remat):
     def __init__(self, ch: int, num_head_channels: int, norm_num_groups: int):
         super().__init__()
         self.num_heads = max(ch // num_head_channels, 1)
@@ -277,16 +296,19 @@ PRESETS = {
 
 def make_unet(model_type: str, spatial_dims: int, in_channels: int, out_channels: int,
               remat: bool = False, quant: str | None = None) -> DiffusionModelUNet:
-    """The tiny / small / big presets of the JAX package, 2D or 3D; there is
-    no rematerialisation and no quantised variant yet."""
-    if remat:
-        raise NotImplementedError("remat is not ported to the PyTorch UNet")
+    """The tiny / small / big presets of the JAX package, 2D or 3D, with
+    every res and attention block recomputed in the backward pass when
+    `remat`; there is no quantised variant yet."""
     if quant not in (None, "none"):
         raise NotImplementedError(f"quantized UNet ({quant!r}) is not ported")
     if model_type not in PRESETS:
         raise ValueError(f"Do not recognise model type {model_type}")
-    return DiffusionModelUNet(spatial_dims=spatial_dims, in_channels=in_channels,
-                              out_channels=out_channels, **PRESETS[model_type])
+    model = DiffusionModelUNet(spatial_dims=spatial_dims, in_channels=in_channels,
+                               out_channels=out_channels, **PRESETS[model_type])
+    for block in model.modules():
+        if isinstance(block, _Remat):
+            block.remat = bool(remat)
+    return model
 
 
 @torch.no_grad()

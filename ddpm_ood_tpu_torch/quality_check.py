@@ -33,8 +33,9 @@ Differences from the JAX script:
   limit as ``nvidia-smi`` reports them, and ``timing`` the seconds of
   training and of each sampler's scoring and its recons/s; with
   ``--compare_to`` the JSON also holds ``compare_quality``'s lines;
-- ``--simplex`` and ``--quantize`` other than none raise NotImplementedError
-  (simplex noise and quantised scoring are not ported);
+- ``--quantize`` other than none raises NotImplementedError (quantised
+  scoring is not ported); ``--simplex`` trains and scores with exact
+  simplex noise, as the JAX script does;
 - ``--checkpoint`` scores a given reference-schema ``.pth`` (for example a
   model the JAX package trained, converted) instead of training one, which
   tells a fault of training from one of scoring.
@@ -169,7 +170,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         f"plms; with --pinned {PINNED_SAMPLERS}, of which a subset may be "
                         "named); a token may carry its own grid as name@steps/skip")
     parser.add_argument("--simplex", action="store_true",
-                        help="train + reconstruct with simplex noise (not ported)")
+                        help="train + reconstruct with simplex noise")
     parser.add_argument("--ema_decay", type=float, default=0.0,
                         help="train with a weight EMA at this decay and ALSO score with "
                         "--use_ema (reported as '<sampler>+ema')")
@@ -215,9 +216,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.elbo = args.ssim = False
         args.near_freq, args.n_eval = 3.0, 1024
     args.samplers = args.samplers or "plms"
-    if args.simplex:
-        raise NotImplementedError("--simplex is not ported to ddpm_ood_tpu_torch "
-                                  "(Gaussian noise only)")
     if args.quantize != "none":
         raise NotImplementedError(f"--quantize={args.quantize} is not ported to "
                                   "ddpm_ood_tpu_torch")

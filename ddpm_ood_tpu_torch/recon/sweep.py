@@ -31,6 +31,14 @@ decodes one lane (B samples) at a time and scores it as it comes, against
 LPIPS taps of the images computed once. The ELBO terms stay in latent space.
 ``score_elbo`` adds one UNet call per lane group at each lane's own start
 point and noise, and the variational-bound term (``diffusion/elbo.py``).
+
+Noise: Gaussian from the caller's ``torch.Generator`` by default;
+``host_noise_fn`` (exact simplex noise, or a test's fixed draw) makes it on
+the host, and ``simplex_noise_fn`` on the device from the generator. Host
+noise is double-buffered as in the JAX program: after each batch's draw one
+worker thread starts the next batch's at the same shape, and a batch whose
+shape differs consumes and discards that draw before making its own, so
+the draws reach a global RNG in the order of a run without prefetch.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -227,8 +237,13 @@ class ReconProgram:
     # call rather than once per UNet forward. None computes in fp32.
     autocast_dtype: Optional[torch.dtype] = None
     # host_noise_fn((K, B, *latent), t_starts) -> np.ndarray replaces the
-    # generator's Gaussian draw; tests use it to feed both packages one draw
+    # generator's Gaussian draw (exact simplex noise; tests feed both
+    # packages one draw through it); the next batch's draw is made ahead on
+    # one worker thread
     host_noise_fn: Optional[Callable] = None
+    # simplex_noise_fn(generator, (K, B, *latent), t_starts (K,)) -> noise
+    # on the device (--simplex_noise_mode=device)
+    simplex_noise_fn: Optional[Callable] = None
     perceptual_fn: Optional[PerceptualFn] = None
     score_elbo: bool = False
     score_ssim: bool = False
@@ -265,6 +280,12 @@ class ReconProgram:
         self.model_evals = 0
         self.last_preview = None
         self.last_error_maps = None
+        # host noise: seconds spent drawing the draws consumed so far, and
+        # seconds the caller's thread waited for them
+        self.host_noise_seconds = 0.0
+        self.host_noise_wait_seconds = 0.0
+        self._noise_executor: Optional[ThreadPoolExecutor] = None
+        self._pending_noise: Optional[Tuple[tuple, Future]] = None  # the next batch's draw
 
     def _model(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         self.model_evals += 1
@@ -274,13 +295,75 @@ class ReconProgram:
         """The UNet on B samples in the (B, *spatial, C) layout."""
         return _model_to_lane_major(self._model(_lane_major_to_model(x[None]), t), 1)[0]
 
-    def _noise(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _draw_host(self, shape: tuple) -> tuple:
+        """(host_noise_fn's float32 draw of `shape`, the seconds it took)."""
+        t0 = time.perf_counter()
+        arr = np.asarray(self.host_noise_fn(shape, self.t_starts), dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"host noise shape {arr.shape} != expected {shape}")
+        return arr, time.perf_counter() - t0
+
+    def _host_noise_for(self, shape: tuple) -> np.ndarray:
+        """This batch's host draw: the prefetched one when its shape matches,
+        else (after consuming a mismatched prefetch) a draw made now; then the
+        next batch's draw starts on the worker thread."""
+        t0 = time.perf_counter()
+        arr = None
+        if self._pending_noise is not None:
+            pending_shape, future = self._pending_noise
+            self._pending_noise = None
+            drawn, secs = future.result()
+            self.host_noise_seconds += secs
+            if pending_shape == shape:
+                arr = drawn
+        if arr is None:
+            arr, secs = self._draw_host(shape)
+            self.host_noise_seconds += secs
+        self.host_noise_wait_seconds += time.perf_counter() - t0
+        if self._noise_executor is None:
+            self._noise_executor = ThreadPoolExecutor(max_workers=1,
+                                                      thread_name_prefix="host-noise")
+        self._pending_noise = (shape, self._noise_executor.submit(self._draw_host, shape))
+        return arr
+
+    def close(self) -> None:
+        """Wait for a pending host draw and stop the worker thread."""
+        if self._pending_noise is not None:
+            self._pending_noise[1].result()
+            self._pending_noise = None
+        if self._noise_executor is not None:
+            self._noise_executor.shutdown()
+            self._noise_executor = None
+
+    def _noise(self, shape: tuple, generator: Optional[torch.Generator],
+               noise_batch: Optional[int], prefetch: bool = True) -> torch.Tensor:
+        """(K, B, *latent) noise. Host noise is drawn at `noise_batch` items
+        (the run's first batch size, which a ragged last batch keeps) and
+        sliced to B."""
         if self.host_noise_fn is not None:
-            arr = np.asarray(self.host_noise_fn(shape, self.t_starts), dtype=np.float32)
-            if arr.shape != tuple(shape):
-                raise ValueError(f"host noise shape {arr.shape} != expected {tuple(shape)}")
-            return torch.from_numpy(arr).to(self.device)
+            b = shape[1]
+            full = (shape[0], max(b, int(noise_batch or b))) + shape[2:]
+            arr = self._host_noise_for(full) if prefetch else self._draw_host(full)[0]
+            return torch.from_numpy(arr[:, :b]).to(self.device)
+        if self.simplex_noise_fn is not None:
+            t_starts = torch.as_tensor(self.t_starts, device=self.device)
+            return self.simplex_noise_fn(generator, shape, t_starts).to(self.device)
         return torch.randn(shape, generator=generator, device=self.device)
+
+    def skip(self, images, generator: Optional[torch.Generator] = None) -> None:
+        """Advance `generator` past the draw a batch of `images` would make,
+        without scoring it (a resumed run's already-scored batch), so the
+        batches after it get the noise of a run without the skip. Host noise
+        is not drawn for a skipped batch, as in the JAX program."""
+        if self.host_noise_fn is not None:
+            return
+        if self.latent_sample_shape is not None:
+            sample = tuple(self.latent_sample_shape)
+        else:
+            with torch.no_grad():
+                sample = tuple(self._encode(torch.as_tensor(images, dtype=torch.float32)
+                                            .to(self.device)).shape[1:])
+        self._noise((len(self.t_starts), len(images)) + sample, generator, None)
 
     def _encode(self, images: torch.Tensor) -> torch.Tensor:
         """The UNet's input space: the images, encoded and padded."""
@@ -332,13 +415,19 @@ class ReconProgram:
                                          x_t.flatten(0, 1), noise.flatten(0, 1),
                                          t_flat).view(k, b)
 
-    def __call__(self, images, generator: Optional[torch.Generator] = None):
+    def __call__(self, images, generator: Optional[torch.Generator] = None,
+                 noise_batch: Optional[int] = None):
+        """`noise_batch`: the batch size host noise is drawn at (the JAX CLI
+        wrap-pads a ragged last batch to its first batch's size before the
+        draw); None draws at this batch's size."""
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         autocast = (torch.autocast(self.device.type, dtype=self.autocast_dtype)
                     if self.autocast_dtype is not None else contextlib.nullcontext())
         with torch.no_grad(), autocast:
             x = self._encode(images)
-        noise_full = self._noise((len(self.t_starts),) + tuple(x.shape), generator)
+        # plms_ref draws its host noise at once, as the JAX program does
+        noise_full = self._noise((len(self.t_starts),) + tuple(x.shape), generator, noise_batch,
+                                 prefetch=self.sampler != "plms_ref")
         if self.sampler == "plms_ref":
             with torch.no_grad(), autocast:
                 recon = plms_reference_exact_sweep(

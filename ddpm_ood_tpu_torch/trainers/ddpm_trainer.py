@@ -2,15 +2,20 @@
 
 Port of ``ddpm_ood_tpu/trainers/ddpm_trainer.py`` for 2D and 3D models, in
 pixel space or on the latents of a frozen VQ-VAE (``--vqvae_checkpoint``,
-``--latent_pad``), with Gaussian noise, on one device:
+``--latent_pad``), on one device:
   - the epoch loop keeps the reference's policy: the rolling ``checkpoint``
     is the best on TRAIN loss, ``checkpoint_{N}`` is written every
     ``--checkpoint_every`` epochs, validation runs every ``--eval_freq``;
   - per step: the batch's x0 (``DDPMTrainStep.prepare``: the images, or
     their padded latents), t ~ U[0, T) and Gaussian noise of x0's shape
-    from the trainer's generator, then ``DDPMTrainStep.step`` (noising, MSE
-    on the prediction type's target, backward, Adam, EMA); ``global_step``
-    counts images;
+    from the trainer's generator (with ``--simplex_noise=1``: t from numpy's
+    global RNG and OpenSimplex planes, ``_simplex_batch``, as the JAX
+    trainer draws them, in training and validation alike), then
+    ``DDPMTrainStep.step`` (noising, MSE on the prediction type's target,
+    backward, Adam, EMA); ``global_step`` counts images;
+  - ``--remat=1`` recomputes the UNet's res and attention blocks in the
+    backward pass; ``--profile_dir`` writes a ``torch.profiler`` trace of
+    warm steps 2-4 of the first epoch;
   - per-step train losses stay on the device and are read 32 at a time, so
     the host does not wait for the device at every step;
   - validation logs the mean loss and an ancestral sample grid
@@ -32,9 +37,12 @@ import torch
 
 from ..data.loader import get_training_data_loader
 from ..diffusion.ddpm import ddpm_sample
+from ..noise import _native
+from ..noise.simplex import Simplex, generate_simplex_noise
 from ..train.ddpm import channels_last
 from ..utils.logging import Logger
 from ..utils.preemption import PreemptionGuard, checkpoint_if_preempted
+from ..utils.profiling import start_trace, stop_trace
 from .base import BaseTrainer, refuse_flags
 
 log = logging.getLogger(__name__)
@@ -45,12 +53,7 @@ LOSS_CHUNK = 32  # device losses read per host sync
 
 def refuse_unported_train_flags(args) -> None:
     """Raise NotImplementedError naming the first flag this slice does not serve."""
-    refuse_flags(args, [
-        ("--simplex_noise", bool(args.simplex_noise), "Gaussian noise only"),
-        ("--fsdp", bool(args.fsdp), "one device"),
-        ("--remat", bool(args.remat), ""),
-        ("--profile_dir", bool(args.profile_dir), ""),
-    ])
+    refuse_flags(args, [("--fsdp", bool(args.fsdp), "one device")])
 
 
 class DDPMTrainer(BaseTrainer):
@@ -60,6 +63,9 @@ class DDPMTrainer(BaseTrainer):
         if grad_accum > 1 and args.batch_size % grad_accum != 0:
             raise ValueError(f"--batch_size {args.batch_size} is not divisible by "
                              f"--grad_accum_steps {grad_accum}")
+        self.simplex_noise = bool(args.simplex_noise)
+        if self.simplex_noise:
+            _native.library()  # before the model: no g++ is an error
         super().__init__(args, device, training=True, init_weights=init_weights)
         self.logger_train = Logger(self.run_dir / "train")
         self.logger_val = Logger(self.run_dir / "val")
@@ -75,13 +81,34 @@ class DDPMTrainer(BaseTrainer):
             image_roi=self.image_roi,
             spatial_dimension=self.spatial_dimension,
         )
+        if self.simplex_noise:
+            self.simplex = Simplex()  # a draw from numpy's global RNG, as the JAX trainer's
         self.generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
+        self.profile_dir = getattr(args, "profile_dir", None)
+        self.profile_path = None  # the trace, once written
         self.quick_test = bool(args.quick_test)
         self.sample_forwards = 0  # UNet forwards of the validation sampler
         self.epoch_times: List[Tuple[int, float]] = []  # (images, seconds) per train epoch
 
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
         return channels_last(torch.from_numpy(images).to(self.device, non_blocking=True))
+
+    def _simplex_batch(self, b: int, sample_shape) -> Tuple[np.ndarray, np.ndarray]:
+        """t (b,) int32 from numpy's global RNG, then (b, *sample_shape)
+        OpenSimplex noise on those planes: the JAX trainer's host draw.
+        `sample_shape` is channel-last (*spatial, C)."""
+        t = np.random.randint(0, self.sched.num_train_timesteps, size=(b,))
+        noise = generate_simplex_noise(self.simplex, (b,) + tuple(sample_shape), t)
+        return t.astype(np.int32), noise
+
+    def _draw(self, x0: torch.Tensor):
+        """(t, noise) for x0 (B, C, *spatial): Gaussian from the generator,
+        or the host's simplex draw."""
+        if not self.simplex_noise:
+            return self.step.draw(x0, self.generator)
+        t, noise = self._simplex_batch(x0.shape[0], tuple(x0.shape[2:]) + (x0.shape[1],))
+        noise = torch.from_numpy(noise).to(self.device).movedim(-1, 1)
+        return torch.from_numpy(t).to(self.device, torch.int64), channels_last(noise)
 
     # ------------------------------------------------------------------ train --
     def train(self, args) -> None:
@@ -122,18 +149,28 @@ class DDPMTrainer(BaseTrainer):
                 self.logger_train.add_scalar("loss", val, gstep)
             pending.clear()
 
-        for batch in self.train_loader:
+        profiler = None
+        for i, batch in enumerate(self.train_loader):
+            if self.profile_dir and epoch == self.start_epoch and i == 2:
+                profiler = start_trace(self.device)  # warm steps 2-4
             x0 = self.step.prepare(self._to_device(batch["image"]))
-            t, noise = self.step.draw(x0, self.generator)
+            t, noise = self._draw(x0)
             loss = self.step.step(x0, t, noise)
             bsz = x0.shape[0]
             self.global_step += bsz
             epoch_images += bsz
             pending.append((self.global_step, bsz, loss))
+            if profiler is not None and i >= 4:
+                self.profile_path = stop_trace(profiler, self.device, self.profile_dir,
+                                               "train_steps_2_4")
+                profiler = None
             if len(pending) >= LOSS_CHUNK:
                 flush()
             if self.quick_test:
                 break
+        if profiler is not None:  # an epoch of under 5 steps
+            self.profile_path = stop_trace(profiler, self.device, self.profile_dir,
+                                           "train_steps_2_4")
         flush()
         self.logger_train.flush()
         dt = time.perf_counter() - t0
@@ -150,7 +187,7 @@ class DDPMTrainer(BaseTrainer):
         last_batch = None
         for batch in self.val_loader:
             x0 = self.step.prepare(self._to_device(batch["image"]))
-            t, noise = self.step.draw(x0, self.generator)
+            t, noise = self._draw(x0)
             total += float(self.step.eval_loss(x0, t, noise)) * x0.shape[0]
             count += x0.shape[0]
             last_batch = x0

@@ -4,8 +4,10 @@ In a fresh interpreter whose import system refuses jax, flax, orbax, optax,
 pandas, sklearn and matplotlib (as on the GPU host, which has none of them)
 and the JAX package itself (the port keeps its own copies of what it needs),
 every module of ddpm_ood_tpu_torch imports, the tiny scoring CLI (with LPIPS
-from an npz, --score_ssim and --save_error_maps) and training CLI run on the
-CPU without launching a kernel, ``python -m ddpm_ood_tpu_torch.ood_detection``
+from an npz, --score_ssim and --save_error_maps, and exact simplex noise,
+--resume and --remat) and training CLI (simplex noise and remat) run on the
+CPU without launching a kernel (the port's own OpenSimplex library built),
+``python -m ddpm_ood_tpu_torch.ood_detection``
 prints the AUROCs of the scoring CLI's CSVs, ``python -m
 ddpm_ood_tpu_torch.quality_check --device=cpu`` trains, scores with DPM-Solver++
 and the ELBO, and prints its JSON, and building the CUDA kernels where there
@@ -77,9 +79,13 @@ print(json.dumps({
                  flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches],
     "trained": [trainer.global_step, trainer.step.backwards,
                 sorted(p.name for p in trainer.run_dir.glob("*.pth"))],
+    "noise": [type(recon._programs[3].host_noise_fn).__name__, trainer.simplex_noise,
+              trainer.unet.middle_block.resnet_1.remat],
     "csvs": sorted(p.name for p in recon.out_dir.glob("results_*.csv")),
     "ssim_header": (recon.out_dir / "results_val.csv").read_text().splitlines()[0],
-    "error_maps": sorted(str(p.relative_to(recon.out_dir)) for p in recon.out_dir.rglob("*.npy")),
+    "error_maps": sorted(str(p.relative_to(recon.out_dir))
+                         for p in recon.out_dir.glob("error_maps/*/*.npy")),
+    "previews": sorted(p.name for p in recon.out_dir.glob("preview_*.npy")),
     "ood_detection": printed.getvalue().splitlines(),
     "scores_csv": (recon.out_dir / "ood_scores_mse+perceptual.csv").is_file(),
     "quality": [json.loads(line) for line in quality.getvalue().splitlines()
@@ -92,9 +98,10 @@ print(json.dumps({
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
-    argv = make_synthetic_run(tmp_path / "score")
+    argv = make_synthetic_run(tmp_path / "score") + ["--simplex_noise=1", "--resume=1",
+                                                     "--remat=1"]
     train = train_argv(tmp_path / "train", "--n_epochs=1", "--eval_freq=100",
-                       "--checkpoint_every=1")
+                       "--checkpoint_every=1", "--simplex_noise=1", "--remat=1")
     ood = [f"--output_dir={tmp_path / 'score' / 'output'}", f"--model_name={MODEL}",
            "--plot_target=mse+perceptual", "--report=auroc,aupr,fpr95,auroc_ci"]
     quality = ["--device=cpu", "--epochs=1", "--size=8", "--n_train=8", "--n_eval=4",
@@ -111,15 +118,19 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("trainers.reconstruct", "trainers.ddpm_trainer", "train_ddpm", "config",
                 "data.transforms", "ops._kernels", "diffusion.ddim", "diffusion.dpm_solver",
-                "diffusion.elbo", "quality_check"):
+                "diffusion.elbo", "quality_check", "noise.simplex", "noise._native",
+                "utils.native_build", "utils.profiling"):
         assert f"ddpm_ood_tpu_torch.{mod}" in got["modules"]
     assert got["leaked"] == []
     assert got["evals"] > 0 and got["launches"] == [0, 0, 0, 0]
     assert got["trained"] == [10, 3, ["checkpoint.pth", "checkpoint_1.pth"]]
+    assert got["noise"] == ["method", True, True]  # the exact host noise, simplex, remat
     assert len(got["csvs"]) == 5
     assert got["ssim_header"] == ",filename,type,t,perceptual_difference,mse,ssim_distance"
     assert len(got["error_maps"]) == 5 * 4 and all(
         p.startswith("error_maps/") for p in got["error_maps"])
+    assert got["previews"] == ["preview_in.npy", "preview_out_3.npy", "preview_out_4.npy",
+                               "preview_out_5.npy", "preview_val.npy"]
     aucs = [line for line in got["ood_detection"] if line.startswith("AUC for")]
     assert [line.split(" vs ")[1].split(":")[0] for line in aucs] == OUT_NAMES
     for line in aucs:  # "AUC for <model> vs <name>: 62.5 (95% CI [30.1, 94.9])"
@@ -155,7 +166,9 @@ print(json.dumps({
     "channels": recon.ddpm_channels,
     "csvs": sorted(p.name for p in recon.out_dir.glob("results_*.csv")),
     "header": (recon.out_dir / "results_val.csv").read_text().splitlines()[0],
-    "error_maps": sorted(str(p.relative_to(recon.out_dir)) for p in recon.out_dir.rglob("*.npy")),
+    "error_maps": sorted(str(p.relative_to(recon.out_dir))
+                         for p in recon.out_dir.glob("error_maps/*/*.npy")),
+    "previews": sorted(p.name for p in recon.out_dir.glob("preview_*.npy")),
     "leaked": sorted(m for m, mod in sys.modules.items()
                      if mod is not None and m.split(".")[0] in BLOCKED),
 }))
@@ -213,6 +226,7 @@ def test_ldm_3d_scoring_runs_without_jax(tmp_path):
     assert got["csvs"] == ["results_val.csv"]
     assert got["header"] == ",filename,type,t,perceptual_difference,mse,ssim_distance"
     assert got["error_maps"] == ["error_maps/val/vol_0.npy", "error_maps/val/vol_1.npy"]
+    assert got["previews"] == ["preview_val.npy"]
 
 
 CHILD_TRAIN_LDM = r"""

@@ -99,11 +99,18 @@ def test_pinned_settings_and_sampler_subsets():
         qc.parse_args(["--pinned", "--samplers=plms_ref"])
 
 
-@pytest.mark.parametrize("flag,name", [("--quantize=int8", "--quantize"),
-                                       ("--simplex", "--simplex")])
+@pytest.mark.parametrize("flag,name", [("--quantize=int8", "--quantize")])
 def test_unported_flags_raise(flag, name):
     with pytest.raises(NotImplementedError, match=name):
         qc.main(["--device=cpu", flag])
+
+
+@pytest.mark.parametrize("flag", ["--simplex"])
+def test_simplex_is_served(flag):
+    """The gate trains and scores with exact simplex noise
+    (tests/test_torch_simplex_train.py runs it at a tiny size)."""
+    args = qc.parse_args(["--device=cpu", flag])
+    assert args.simplex and not qc.parse_args(["--pinned", flag]).simplex
 
 
 def test_tiny_run_writes_the_jax_schema(tmp_path, capsys):

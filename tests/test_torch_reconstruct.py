@@ -11,7 +11,7 @@ programs take it from one host function), and the two agree column for
 column. ``pd.read_csv`` reads the port's CSVs with the JAX column set, and
 ``ddpm_ood_tpu.ood.run_ood_detection`` scores them unchanged. A second pair
 of runs adds ``--sampler=dpm --score_elbo=1``: the DPM-Solver++ sweep and the
-``elbo`` column. Flags the slice does not serve raise NotImplementedError
+``elbo`` column. Flags the port does not serve raise NotImplementedError
 naming the flag.
 
 Tolerances, fp32 on both sides: t exact; mse rtol 1e-5 (the sweep's,
@@ -122,9 +122,10 @@ def make_synthetic_run(root: Path) -> list:
     ]
 
 
-def _jax_reconstruct(root: Path, argv: list) -> Path:
-    """The JAX package's Reconstruct on the same data, weights, npz and noise;
-    returns its ood directory."""
+def _jax_reconstruct(root: Path, argv: list, host_noise_fn=host_noise) -> Path:
+    """The JAX package's Reconstruct on the same data, weights, npz and noise
+    (`host_noise_fn`; None keeps the noise the flags ask for); returns its
+    ood directory."""
     import jax
 
     from ddpm_ood_tpu.config import parse_args_reconstruct
@@ -146,8 +147,9 @@ def _jax_reconstruct(root: Path, argv: list) -> Path:
     args = parse_args_reconstruct([a.replace(str(root / "output"), str(out)) for a in argv
                                    if a != "--device=cpu"])
     recon = JaxReconstruct(args)
-    program = recon._program(args.inference_skip_factor)
-    program.host_noise_fn, program.overlap_host_noise = host_noise, False
+    if host_noise_fn is not None:
+        program = recon._program(args.inference_skip_factor)
+        program.host_noise_fn, program.overlap_host_noise = host_noise_fn, False
     recon.reconstruct(args)
     return out / MODEL / "ood"
 
@@ -280,12 +282,18 @@ def test_csv_sink_output_equals_pandas_to_csv(tmp_path):
     assert path.read_text() == (tmp_path / "pandas.csv").read_text()
 
 
-REFUSED = [
-    ("--simplex_noise=1", "--simplex_noise"),
-    ("--quantize=int8", "--quantize"), ("--aot_cache=/tmp/aot", "--aot_cache"),
-    ("--profile_dir=prof", "--profile_dir"), ("--resume=1", "--resume"),
-    ("--remat=1", "--remat"),
-]
+REFUSED = [("--quantize=int8", "--quantize"), ("--aot_cache=/tmp/aot", "--aot_cache")]
+
+
+@pytest.mark.parametrize("flag", ["--simplex_noise=1", "--profile_dir=prof", "--resume=1",
+                                  "--remat=1"])
+def test_noise_resume_profile_and_remat_flags_are_served(flag):
+    """Simplex noise, --resume, --profile_dir and --remat
+    (tests/test_torch_simplex_recon.py, test_torch_recon_resume.py,
+    test_torch_remat.py)."""
+    from ddpm_ood_tpu_torch.trainers.reconstruct import refuse_unported_flags
+
+    refuse_unported_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
 
 
 @pytest.mark.parametrize("flag", ["--score_ssim=1", "--save_error_maps=1"])

@@ -152,10 +152,15 @@ def test_sigterm_checkpoints_the_epoch_and_stops(tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) == before  # the guard put the old handler back
 
 
-REFUSED = [
-    ("--simplex_noise=1", "--simplex_noise"),
-    ("--fsdp=1", "--fsdp"), ("--remat=1", "--remat"), ("--profile_dir=prof", "--profile_dir"),
-]
+REFUSED = [("--fsdp=1", "--fsdp")]
+
+
+@pytest.mark.parametrize("flag", ["--simplex_noise=1", "--remat=1", "--profile_dir=prof"])
+def test_simplex_remat_and_profile_flags_are_served(flag):
+    """tests/test_torch_simplex_train.py and test_torch_remat.py run them."""
+    from ddpm_ood_tpu_torch.trainers.ddpm_trainer import refuse_unported_train_flags
+
+    refuse_unported_train_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
 
 
 @pytest.mark.parametrize("flag,name", REFUSED)

@@ -112,7 +112,7 @@ def test_memory_format_does_not_change_the_result():
     torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(remat=True), dict(quant="int8"), dict(quant="w8")])
+@pytest.mark.parametrize("kw", [dict(quant="mixed"), dict(quant="int8"), dict(quant="w8")])
 def test_unported_variants_raise(kw):
     args = dict(model_type="tiny", spatial_dims=2, in_channels=1, out_channels=1)
     args.update(kw)
