@@ -42,7 +42,26 @@ Phases, each fatal on failure:
                  (numpy only) for the plot targets mse, perceptual_difference,
                  mse+perceptual and ssim_distance: AUROC, AUPR, FPR@95 and the
                  DeLong CI, each AUROC finite in [0, 1], ood_scores_*.csv written.
-  9. samplers -- DDIM, DPM-Solver++ and the carried-history PLMS
+  9. serve    -- the online scoring service on a copy of the main phase's
+                 run: an fp32 ScoringService card vs CPU (10-step PLMS,
+                 batch 4, noise passed in); python -m ddpm_ood_tpu_torch.serve
+                 in a subprocess, SIGTERMed while a POST /score is in flight
+                 (200, exit 0); the CLI's service built in this process at
+                 full width (batch 32, --flag_fpr=0.05, a bearer token):
+                 its first request against the scoring CLI's results_in.csv
+                 (per-t mse at rtol 1e-5, z_score_mse within 1e-4 of the
+                 offline z), 401 / healthz / statz / metricz / 413 /
+                 wrap-pad, 32 concurrent single-image clients through a
+                 50 ms BatchingScoringService window (at most 2 sweeps),
+                 POST /reload of a new checkpoint.pth (scores change, no
+                 kernel build, equal to a fresh service given the same
+                 noise); launch counts; latencies, flood reqs/s and
+                 mean_sweep_seconds printed.
+ 10. sample   -- plms_denoise, ddim_denoise and dpm_denoise fp32 card vs
+                 CPU; the sample CLI at full width on the main checkpoint:
+                 dpm@25 (32 samples), then ddpm (8 samples, 1000 forwards);
+                 shape, finite, in [0, 1], launch counts, seconds.
+ 11. samplers -- DDIM, DPM-Solver++ and the carried-history PLMS
                  (plms_ref), and the ELBO score: each sampler's fp32
                  small-UNet ReconProgram on a 10-step grid with the noise
                  passed in, its (K, B) MSE table and (but for plms_ref) its
@@ -55,7 +74,7 @@ Phases, each fatal on failure:
                  run_ood_detection for elbo and mse+elbo on its CSVs. Every
                  path launches 27 GroupNorms and 4 flash forwards per UNet
                  forward (in bf16 on the cluster and tensor-core kernels).
- 10. simplex  -- simplex noise, --resume, previews and --profile_dir on the
+ 12. simplex  -- simplex noise, --resume, previews and --profile_dir on the
                  scoring path: g++ builds the port's OpenSimplex library
                  (seconds printed); one headline batch's planes, batched and
                  serial, bit-identical; device-mode noise card against CPU
@@ -69,7 +88,7 @@ Phases, each fatal on failure:
                  each in a fresh process, the resumed CSV against an
                  uninterrupted run's, and the resumed run's profiler trace
                  naming the port's GroupNorm and attention kernels.
- 11. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
+ 13. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
                  the small UNet in 3D on (2, 128, 8, 8, 8) latents; the
                  Decathlon VQ-VAE (four 256-channel levels, 2048 codes of
                  width 128) encoding 32^3 volumes, its quantizer's indices
@@ -77,7 +96,7 @@ Phases, each fatal on failure:
                  decoder; the latent ReconProgram (encode, --latent_pad to
                  4^3, 10-step PLMS with the noise passed in, un-pad, decode,
                  fake-3D LPIPS): its (K, B) MSE and LPIPS tables.
- 12. ldm      -- the scoring CLI on a 3D latent diffusion model at the
+ 14. ldm      -- the scoring CLI on a 3D latent diffusion model at the
                  reference's Decathlon geometry (128^3 x 1 volumes, 8^3 x 128
                  latents; seeded VQ-VAE checkpoint.pth with its
                  vqvae_config.json, seeded small 3D UNet), batch 2, LPIPS from
@@ -88,11 +107,11 @@ Phases, each fatal on failure:
                  prints latent-recons/s, the device seconds of encode, UNet
                  forwards, decode and metrics tail (CUDA events), and peak
                  device memory.
- 13. vqvae step, train ldm -- latent-diffusion training: one VQ-VAE +
+ 15. vqvae step, train ldm -- latent-diffusion training: one VQ-VAE +
                  PatchGAN step and one 3D LDM step card against CPU; then
                  train_vqvae and train_ddpm --vqvae_checkpoint at the
                  Decathlon geometry and the scoring CLI on both checkpoints.
- 14. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
+ 16. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
@@ -100,16 +119,17 @@ Phases, each fatal on failure:
                  GroupNorm on the cluster kernel, every flash forward, dK/dV
                  and dQ on tensor cores), and that the scoring CLI
                  loads the trained checkpoint.pth.
- 15. train remat -- one fp32 step with and without remat on the card (equal
+ 17. train remat -- one fp32 step with and without remat on the card (equal
                  gradients within 1e-5 of each tensor's largest value, remat's
                  launch counts from the block structure); the training CLI
                  with --simplex_noise=1, without and with --remat=1 (images/s
                  and peak memory side by side, launch counts), the second's
                  --profile_dir trace naming the port's kernels.
 
-Launch counts are set to 0 just before each CLI run (scoring, the samplers'
-scoring, the two simplex scoring runs, the two latent scoring runs, the
-training runs) and read just after. The line before the last is a JSON
+Launch counts are set to 0 just before each CLI run (scoring, the serve
+CLI's service, the sample CLI, the samplers' scoring, the two simplex
+scoring runs, the two latent scoring runs, the training runs) and read just
+after. The line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}. The
 script imports no JAX.
 """
@@ -767,6 +787,425 @@ def phase_ood(root: Path) -> dict:
     return out
 
 
+# the online scoring service and the sample CLI (phase_serve, phase_sample):
+# the serve CLI's flags at the main path's configuration, with a decision
+# operating point and a bearer token; 32 concurrent single-image clients
+# against a 50 ms batching window
+SERVE_TOKEN = "chip-smoke-token"
+SERVE_ARGS = [f"--model_name={SMOKE_MODEL}", *MAIN_ARGS, "--flag_fpr=0.05", "--host=127.0.0.1"]
+BATCH_WINDOW_MS = 50.0
+STATZ_KEYS = {"requests", "images", "sweeps", "device_seconds", "reloads", "mean_sweep_seconds",
+              "coalescing_ratio", "mean_served_z_mse", "drift_window", "drift_window_filled",
+              "lifetime_mean_z_mse", "flag_fpr", "z_thresholds"}
+PROM_NAMES = ("ddpm_ood_requests_total", "ddpm_ood_images_total", "ddpm_ood_sweeps_total",
+              "ddpm_ood_reloads_total", "ddpm_ood_device_seconds_total",
+              "ddpm_ood_mean_sweep_seconds", "ddpm_ood_coalescing_ratio",
+              "ddpm_ood_mean_served_z_mse", "ddpm_ood_drift_window_filled",
+              "ddpm_ood_lifetime_mean_z_mse", 'ddpm_ood_z_threshold{target="mse"}')
+SERVE_RTOL = 1e-5  # served per-t mse against the scoring CLI's CSV and a fresh service
+SERVE_Z_TOL = 1e-4  # served z_score_mse against the offline mean-over-t z
+
+
+def _http(port: int, path: str, data=None, token=None, headers=None) -> tuple:
+    """(status, body bytes) of one request; HTTP errors are returned too."""
+    import urllib.error
+    import urllib.request
+
+    hdrs = dict(headers or {})
+    if token:
+        hdrs["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, headers=hdrs,
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _npy(arr: np.ndarray) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _copy_run(root: Path, name: str) -> Path:
+    """A copy of the main phase's run (checkpoint.pth, ood/results_val.csv)
+    under root/name/output, which the serve phase may overwrite."""
+    import shutil
+
+    src = root / "output" / SMOKE_MODEL
+    dst = root / name / "output" / SMOKE_MODEL
+    (dst / "ood").mkdir(parents=True)
+    shutil.copy2(src / "checkpoint.pth", dst / "checkpoint.pth")
+    shutil.copy2(src / "ood" / "results_val.csv", dst / "ood" / "results_val.csv")
+    return dst.parent
+
+
+def _rows(path: Path) -> dict:
+    """(filename, t) -> mse of a results CSV."""
+    with open(path, newline="") as fh:
+        return {(r["filename"], int(r["t"])): float(r["mse"]) for r in csv.DictReader(fh)}
+
+
+def _serve_parity(dev: torch.device) -> None:
+    """fp32 ScoringService on the card against the CPU: the seeded small UNet,
+    a 10-step PLMS grid with skip 3, batch 4, the noise passed in, one
+    validation table."""
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.recon.sweep import ReconProgram
+    from ddpm_ood_tpu_torch.serve import ScoringService
+
+    images = np.random.default_rng(6).uniform(size=(4, 32, 32, 1)).astype(np.float32)
+
+    def host_noise(shape, t_starts):
+        return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+
+    out = {}
+    for side, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = seeded_unet(0).to(device, memory_format=torch.channels_last).eval()
+        prog = ReconProgram(
+            sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195, device=device),
+            model_fn=model, device=device, num_inference_steps=10, inference_skip_factor=3,
+            num_groups=2, host_noise_fn=host_noise)
+        n = 4 * len(prog.t_starts)
+        table = {"filename": np.array([f"v{i % 4}" for i in range(n)], dtype=object),
+                 "t": np.repeat(np.asarray(prog.t_starts, np.int64), 4),
+                 "mse": 0.1 + 0.01 * (np.arange(n) % 4), "perceptual_difference": np.zeros(n)}
+        svc = ScoringService(prog, table, batch_size=4, model_name="parity")
+        out[side] = (svc, svc.score(images))
+    cpu_svc, cpu = out["cpu"]
+    _, card = out["cuda"]
+    mse_err = max(abs(c["per_t"][t]["mse"] - r["per_t"][t]["mse"]) / max(r["per_t"][t]["mse"], 1e-6)
+                  for c, r in zip(card, cpu) for t in r["per_t"])
+    min_sd = min(sd for _, sd in cpu_svc._stats["mse"].values())
+    max_mse = max(v["mse"] for r in cpu for v in r["per_t"].values())
+    z_tol = FWD_TOL * max_mse / min_sd
+    z_err = max(abs(c["z_score_mse"] - r["z_score_mse"]) for c, r in zip(card, cpu))
+    log(f"serve: fp32 ScoringService card vs CPU (10-step PLMS, skip 3, batch 4): per-t mse "
+        f"max_rel_err={mse_err:.3e} tol={FWD_TOL:.0e}; z_score_mse max_abs_err={z_err:.3e} "
+        f"tol={z_tol:.3e} ({FWD_TOL:.0e} x max mse {max_mse:.4f} / min std {min_sd:.4f})")
+    if not (math.isfinite(mse_err) and mse_err <= FWD_TOL and math.isfinite(z_err)
+            and z_err <= z_tol):
+        raise PhaseError(f"the service on the card disagrees with the CPU: {mse_err}, {z_err}")
+
+
+def _start_serve_cli(root: Path) -> tuple:
+    """``python -m ddpm_ood_tpu_torch.serve`` on a copy of the main run, in a
+    subprocess; returns (process, port, its output lines so far)."""
+    import threading
+
+    port = _free_port()
+    argv = [sys.executable, "-m", "ddpm_ood_tpu_torch.serve",
+            f"--output_dir={_copy_run(root, 'serve_cli')}", *SERVE_ARGS, "--device=cuda",
+            f"--port={port}"]
+    log("serve: " + " ".join(argv[1:]))
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    lines = []
+    threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True).start()
+    return proc, port, lines
+
+
+def _check_serve_cli(proc, port: int, lines: list, images: np.ndarray) -> float:
+    """Waits for the CLI's serving line, then SIGTERMs it while a POST /score
+    is in flight: the response completes with 200 and the process exits 0.
+    Returns the seconds from launch to the serving line."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    try:
+        while not any(ln.startswith("serving OOD scores for ") for ln in lines):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise PhaseError("serve CLI did not start serving:\n" + "".join(lines[-40:]))
+            time.sleep(0.1)
+        ready = time.perf_counter() - t0
+        status, body = _http(port, "/healthz")
+        if status != 200 or json.loads(body)["batch_size"] != N_IMAGES:
+            raise PhaseError(f"serve CLI /healthz: {status} {body[:200]}")
+        inflight = {}
+        client = threading.Thread(target=lambda: inflight.update(
+            result=_http(port, "/score", _npy(images))))
+        client.start()
+        deadline = time.perf_counter() + 60
+        while json.loads(_http(port, "/statz")[1])["requests"] < 1 and client.is_alive():
+            if time.perf_counter() > deadline:
+                raise PhaseError("serve CLI: the POST /score never arrived")
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        client.join(timeout=300)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    status, body = inflight.get("result", (None, b""))
+    scores = json.loads(body).get("scores", []) if status == 200 else []
+    log("serve: CLI output: " + " | ".join(ln.strip() for ln in lines
+                                            if not ln.startswith(("20", "WARNING"))))
+    if status != 200 or len(scores) != len(images) or rc != 0 or \
+            not any("shutting down" in ln for ln in lines):
+        raise PhaseError(f"serve CLI: SIGTERM during POST /score gave {status} with "
+                         f"{len(scores)} scores and exit {rc}:\n" + "".join(lines[-40:]))
+    log(f"serve: CLI served after {ready:.1f} s (process start, model, warmup); SIGTERM during "
+        f"an in-flight POST /score: 200 with {len(scores)} scores, exit 0")
+    return ready
+
+
+def phase_serve(dev: torch.device, root: Path) -> dict:
+    """The online scoring service on the main phase's run: fp32 card vs CPU;
+    the serve CLI's service at full width in this process (first request
+    against the scoring CLI's results_in.csv, responses, auth, 413, wrap-pad,
+    dynamic batching, hot reload, launch counts, latencies); the real entry
+    point in a subprocess, SIGTERMed with a request in flight. Returns the
+    in-process launches."""
+    import threading
+
+    from ddpm_ood_tpu_torch import serve
+    from ddpm_ood_tpu_torch.config import parse_args_serve
+    from ddpm_ood_tpu_torch.data.loader import DataLoader
+    from ddpm_ood_tpu_torch.data.transforms import TransformChain
+    from ddpm_ood_tpu_torch.losses.lpips import PerceptualLoss
+    from ddpm_ood_tpu_torch.ood.score import dedup, read_results_csv, zscore_against_val
+    from ddpm_ood_tpu_torch.ops import _kernels
+    from ddpm_ood_tpu_torch.trainers.base import BaseTrainer
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    # the in split as the scoring CLI's loader gives it: one batch of 32
+    loader = DataLoader(str(root / "in.csv"), N_IMAGES,
+                        TransformChain(spatial_dimension=2, is_grayscale=True, image_size=32))
+    batch = next(iter(loader))
+    images = np.moveaxis(batch["image"], 1, -1)
+    stems = [Path(f).stem for f in batch["filename"]]
+
+    proc, cli_port, cli_lines = _start_serve_cli(root)  # its start overlaps the parity check
+    _serve_parity(dev)
+    cli_ready = _check_serve_cli(proc, cli_port, cli_lines, images)
+
+    out_dir = _copy_run(root, "serve")
+    args = parse_args_serve([f"--output_dir={out_dir}", *SERVE_ARGS, "--device=cuda",
+                             f"--auth_token={SERVE_TOKEN}"])
+    reset_launches()
+    service = serve.build_service(args)
+    if not service.warmup_seconds > 0:
+        raise PhaseError(f"serve: warmup took {service.warmup_seconds} s")
+    program = service.program
+    per_sweep = sum(len(ts) for ts, _ in program._groups)
+    server = serve.make_server(service, "127.0.0.1", 0, auth_token=SERVE_TOKEN)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_port
+    batching = serve.BatchingScoringService(service, BATCH_WINDOW_MS)
+    flood_server = serve.make_server(batching, "127.0.0.1", 0, auth_token=SERVE_TOKEN)
+    threading.Thread(target=flood_server.serve_forever, daemon=True).start()
+    try:
+        # the first request after warmup: the scoring CLI's first in batch
+        t1 = time.perf_counter()
+        status, body = _http(port, "/score", _npy(images), SERVE_TOKEN)
+        full_latency = time.perf_counter() - t1
+        if status != 200:
+            raise PhaseError(f"serve: POST /score {status}: {body[:300]}")
+        first = json.loads(body)["scores"]
+        offline = _rows(root / "output" / SMOKE_MODEL / "ood" / "results_in.csv")
+        mse_err = max(abs(rec["per_t"][str(t)]["mse"] - offline[stem, t]) / offline[stem, t]
+                      for stem, rec in zip(stems, first) for t in program.t_starts.tolist())
+        ood = root / "output" / SMOKE_MODEL / "ood"
+        z = zscore_against_val(dedup(read_results_csv(ood / "results_in.csv")),
+                               dedup(read_results_csv(ood / "results_val.csv")), ("mse",))
+        z_err = max(abs(rec["z_score_mse"] - float(np.mean(z["z_score_mse"][z["filename"] == s])))
+                    for s, rec in zip(stems, first))
+        log(f"serve: first request ({N_IMAGES} in images) vs the scoring CLI's results_in.csv: "
+            f"per-t mse max_rel_err={mse_err:.3e} tol={SERVE_RTOL:.0e}; z_score_mse vs the "
+            f"offline mean-over-t z max_abs_err={z_err:.3e} tol={SERVE_Z_TOL:.0e}")
+        if not (mse_err <= SERVE_RTOL and z_err <= SERVE_Z_TOL):
+            raise PhaseError(f"serve: the first request disagrees with the scoring CLI: "
+                             f"{mse_err}, {z_err}")
+
+        # the other responses
+        checks = {
+            "401 /score without the token": _http(port, "/score", _npy(images[:1]))[0] == 401,
+            "401 /statz without the token": _http(port, "/statz")[0] == 401,
+            "/healthz open": _http(port, "/healthz")[0] == 200,
+        }
+        status, body = _http(port, "/statz", token=SERVE_TOKEN)
+        checks["/statz keys"] = status == 200 and STATZ_KEYS <= set(json.loads(body))
+        status, body = _http(port, "/metricz", token=SERVE_TOKEN)
+        samples = {ln.rsplit(" ", 1)[0] for ln in body.decode().splitlines()
+                   if not ln.startswith("#")}
+        checks["/metricz lines"] = status == 200 and set(PROM_NAMES) <= samples
+        status, body = _http(port, "/score", b"x", SERVE_TOKEN,
+                             {"Content-Length": str(service.max_body_bytes + 1)})
+        checks["413 on an oversized Content-Length"] = status == 413
+        t1 = time.perf_counter()
+        status, body = _http(port, "/score", _npy(images[:1]), SERVE_TOKEN)
+        single_latency = time.perf_counter() - t1
+        checks["one image, wrap-padded"] = status == 200 and len(json.loads(body)["scores"]) == 1
+        log(f"serve: responses {checks}")
+        if not all(checks.values()):
+            raise PhaseError(f"serve: wrong responses: {checks}")
+
+        # dynamic batching: 32 concurrent single-image clients
+        sweeps = service.stats["sweeps"]
+        results, sizes = [None] * N_IMAGES, []
+        score = service.score
+        service.score = lambda imgs: (sizes.append(len(imgs)), score(imgs))[1]
+
+        def one(i):
+            results[i] = _http(flood_server.server_port, "/score", _npy(images[i: i + 1]),
+                               SERVE_TOKEN)
+
+        clients = [threading.Thread(target=one, args=(i,)) for i in range(N_IMAGES)]
+        t1 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        flood_wall = time.perf_counter() - t1
+        del service.score
+        flood_sweeps = service.stats["sweeps"] - sweeps
+        ok = sum(1 for r in results if r is not None and r[0] == 200
+                 and len(json.loads(r[1])["scores"]) == 1)
+        log(f"serve: {N_IMAGES} concurrent single-image clients, {BATCH_WINDOW_MS:.0f} ms window: "
+            f"{ok} x 200 in {flood_sweeps} sweeps of {sizes} images, wall {flood_wall:.3f} s, "
+            f"{N_IMAGES / flood_wall:.2f} reqs/s")
+        if ok != N_IMAGES or flood_sweeps > 2:
+            raise PhaseError(f"serve: flood {ok}/{N_IMAGES} ok in {flood_sweeps} sweeps")
+
+        # hot reload of a new checkpoint.pth: in place, no kernel build
+        save_checkpoint(out_dir / SMOKE_MODEL / "checkpoint.pth", seeded_unet(1).state_dict())
+        # every launch looks the library up (a cache hit); a build or a
+        # load would be a miss
+        misses = _kernels.library.cache_info().misses
+        lib_mtime = _kernels.LIB_PATH.stat().st_mtime_ns
+        model_fn = program.model_fn
+        status, body = _http(port, "/reload", b"", SERVE_TOKEN)
+        if status != 200:
+            raise PhaseError(f"serve: POST /reload {status}: {body[:300]}")
+        noise_state = service.generator.get_state()
+        status, body = _http(port, "/score", _npy(images), SERVE_TOKEN)
+        reloaded = json.loads(body)["scores"]
+        fresh_trainer = BaseTrainer(args, dev)
+        fresh = serve.ScoringService(
+            serve.build_recon_program(fresh_trainer, args, perceptual_fn=PerceptualLoss(
+                spatial_dims=2).to(dev).eval()),
+            dedup(read_results_csv(out_dir / SMOKE_MODEL / "ood" / "results_val.csv")),
+            N_IMAGES)
+        fresh.generator.set_state(noise_state)
+        want = fresh.score(images)
+        fresh_err = max(abs(a["per_t"][str(t)]["mse"] - b["per_t"][t]["mse"]) / b["per_t"][t]["mse"]
+                        for a, b in zip(reloaded, want) for t in b["per_t"])
+        changed = sum(a["z_score_mse"] != b["z_score_mse"] for a, b in zip(reloaded, first))
+        rebuilt = (_kernels.library.cache_info().misses != misses
+                   or _kernels.LIB_PATH.stat().st_mtime_ns != lib_mtime)
+        reloads = json.loads(_http(port, "/statz", token=SERVE_TOKEN)[1])["reloads"]
+        log(f"serve: POST /reload -> {reloads} "
+            f"reload(s); {changed}/{N_IMAGES} z_score_mse changed; vs a fresh service on the new "
+            f"checkpoint, same noise: per-t mse max_rel_err={fresh_err:.3e} tol={SERVE_RTOL:.0e}; "
+            f"kernel library rebuilt or reloaded: {rebuilt}")
+        if status != 200 or not changed or fresh_err > SERVE_RTOL or rebuilt \
+                or program.model_fn != model_fn or service.program is not program:
+            raise PhaseError(f"serve: reload: {status}, {changed} changed, {fresh_err}, "
+                             f"rebuilt {rebuilt}")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        stats = serve.collect_stats(service)
+    finally:
+        for s in (server, flood_server):
+            s.shutdown()
+            s.server_close()
+        batching.close()
+    sweeps = 1 + int(stats["sweeps"]) + int(fresh.stats["sweeps"])  # warmup, served, fresh
+    if program.model_evals != per_sweep * stats["sweeps"]:
+        raise PhaseError(f"serve: {program.model_evals} forwards in {stats['sweeps']} sweeps")
+    _check_launches(launches, per_sweep * sweeps, "serve", bf16=True)
+    log(f"serve: {sweeps} sweeps of {per_sweep} UNet forwards ({GN_PER_FORWARD} GroupNorm on the "
+        f"cluster kernel and {ATTN_PER_FORWARD} flash forwards on tensor cores each); "
+        f"launches {launches}")
+    summary = {"full_batch_latency_s": full_latency, "single_image_latency_s": single_latency,
+               "flood_wall_s": flood_wall, "flood_reqs_per_s": N_IMAGES / flood_wall,
+               "flood_sweeps": flood_sweeps, "flood_sweep_images": sizes,
+               "mean_sweep_seconds": stats["mean_sweep_seconds"],
+               "warmup_s": service.warmup_seconds, "cli_ready_s": cli_ready, "card": CARD}
+    log(json.dumps({"serve": summary}))
+    log(f"serve: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+SAMPLE_ARGS = [f"--model_name={SMOKE_MODEL}", "--model_type=small", "--image_size=32",
+               "--is_grayscale=1", "--beta_schedule=scaled_linear_beta", "--beta_start=0.0015",
+               "--beta_end=0.0195", "--device=cuda"]
+# (sampler, steps, samples, UNet forwards) of the sample CLI runs
+SAMPLE_RUNS = (("dpm", 25, 32, 25), ("ddpm", 100, 8, 1000))
+
+
+def phase_sample(dev: torch.device, root: Path) -> dict:
+    """The three single-trajectory denoisers fp32 card vs CPU, then the sample
+    CLI at full width on the main phase's checkpoint. Returns its launches."""
+    from ddpm_ood_tpu_torch import sample as cli
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+
+    t0 = time.perf_counter()
+    noise = np.random.default_rng(8).standard_normal((4, 32, 32, 1)).astype(np.float32)
+    outs = {}
+    for side, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = seeded_unet(0).to(device, memory_format=torch.channels_last).eval()
+        sched = make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195, device=device)
+
+        def model_fn(x, t, model=model):
+            return model(x.permute(0, 3, 1, 2), t).permute(0, 2, 3, 1)
+
+        with torch.no_grad():
+            for name, (make_ts, denoise) in cli.GRID_SAMPLERS.items():
+                ts = make_ts(1000, 10)
+                outs[side, name] = denoise(sched, model_fn, torch.from_numpy(noise).to(device),
+                                           ts, int(ts[0]), 10).cpu()
+    errs = {}
+    for name in cli.GRID_SAMPLERS:
+        ref = outs["cpu", name]
+        scale = max(1.0, ref.abs().max().item())
+        errs[name] = (outs["cuda", name] - ref).abs().max().item() / scale
+    log(f"sample: fp32 denoisers card vs CPU (10-step grids from ts[0], B = 4) rel_err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" tol={FWD_TOL:.0e}")
+    if not all(math.isfinite(e) and e <= FWD_TOL for e in errs.values()):
+        raise PhaseError(f"a denoiser on the card disagrees with the CPU: {errs}")
+
+    total = {}
+    for sampler, steps, n, forwards in SAMPLE_RUNS:
+        argv = [f"--output_dir={root / 'output'}", *SAMPLE_ARGS, f"--sampler={sampler}",
+                f"--num_inference_steps={steps}", f"--n_samples={n}",
+                f"--out={root / 'samples'}"]
+        log("sample: python -m ddpm_ood_tpu_torch.sample " + " ".join(argv))
+        reset_launches()
+        t1 = time.perf_counter()
+        path = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = read_launches()
+        _check_launches(launches, forwards, f"sample CLI {sampler}", bf16=True)
+        arr = np.load(path)
+        if arr.shape != (n, 32, 32, 1) or not np.isfinite(arr).all() or \
+                arr.min() < 0.0 or arr.max() > 1.0:
+            raise PhaseError(f"sample CLI {sampler}: {arr.shape}, range "
+                             f"[{arr.min()}, {arr.max()}]")
+        log(f"sample: {sampler}, {n} samples, {forwards} UNet forwards: {secs:.2f} s "
+            f"({n / secs:.2f} samples/s) -> {path.name}, mean {float(arr.mean()):.4f}; "
+            f"card {CARD}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    log(f"sample: phase took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 # the samplers' scoring path: DPM-Solver++ on the 25-step grid, every start
 # point, with the likelihood column; the rest of MAIN_ARGS as the main path
 SAMPLER_ARGS = ["--sampler=dpm", "--num_inference_steps=25", "--inference_skip_factor=1",
@@ -1201,7 +1640,7 @@ def phase_ldm(dev: torch.device, root: Path, batch: int = LDM_BATCH) -> dict:
     from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
     from ddpm_ood_tpu_torch.ood import run_ood_detection
     from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
-    from ddpm_ood_tpu_torch.trainers.reconstruct import resolve_recon_groups
+    from ddpm_ood_tpu_torch.serve import resolve_recon_groups
     from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
 
     t0 = time.perf_counter()
@@ -2142,6 +2581,8 @@ def main() -> int:
             phase_metrics(dev, npz)
             score, gaussian = phase_main(dev, root, npz)
             phase_ood(root)
+            served = phase_serve(dev, root)
+            sampled = phase_sample(dev, root)
             samplers = phase_samplers(dev, root)
             simplex = phase_simplex_resume(dev, root, gaussian)
             phase_ldm_pieces(dev, npz)
@@ -2154,8 +2595,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    paths = {"score": score, "samplers": samplers, "simplex": simplex, "ldm": ldm,
-             "train": train, "train_ldm": train_ldm, **remat}
+    paths = {"score": score, "serve": served, "sample": sampled, "samplers": samplers,
+             "simplex": simplex, "ldm": ldm, "train": train, "train_ldm": train_ldm, **remat}
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}

@@ -5,8 +5,10 @@ layout mirrors the JAX package, which stays the reference the port is tested
 against. It serves OOD scoring (``python -m ddpm_ood_tpu_torch.reconstruct``),
 its AUROCs (``python -m ddpm_ood_tpu_torch.ood_detection``), DDPM training
 in 2D and 3D, in pixel space or on VQ-VAE latents (``python -m
-ddpm_ood_tpu_torch.train_ddpm``), and VQ-VAE + PatchGAN training (``python
--m ddpm_ood_tpu_torch.train_vqvae``).
+ddpm_ood_tpu_torch.train_ddpm``), VQ-VAE + PatchGAN training (``python -m
+ddpm_ood_tpu_torch.train_vqvae``), the online scoring service (``python -m
+ddpm_ood_tpu_torch.serve``) and sample generation (``python -m
+ddpm_ood_tpu_torch.sample``).
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,10 @@ JAX package's ``train_ddpm.py``, ``train_vqvae.py``, ``reconstruct.py`` and
 ``parse_args_train_vqvae``, ``parse_args_reconstruct`` and
 ``parse_args_ood_detection``: the port imports nothing of the JAX package.
 Tuple-ish flags are parsed with ast.literal_eval like the reference.
+``parse_args_serve`` and ``parse_args_sample`` copy the parsers of the JAX
+package's ``scripts/serve.py`` and ``scripts/sample.py``, which keep
+``--image_roi`` and ``--latent_pad`` as raw strings: here they are parsed
+with ast.literal_eval too, and ``--device`` is added.
 
 Flags the port does not serve (``--quantize`` other than none, ``--aot_cache``,
 ``--fsdp``) are still parsed here; the CLI that reads them raises
@@ -438,3 +442,101 @@ def parse_args_ood_detection(argv=None) -> argparse.Namespace:
         "(DeLong 95%% confidence interval on the AUROC).",
     )
     return parser.parse_args(argv)
+
+
+def _run_model_flags(parser: argparse.ArgumentParser) -> None:
+    """The model, geometry, schedule and checkpoint flags that the JAX
+    package's ``scripts/serve.py`` and ``scripts/sample.py`` share, plus
+    ``--device``."""
+    parser.add_argument("--output_dir", required=True)
+    parser.add_argument("--model_name", required=True)
+    parser.add_argument("--model_type", default="small")
+    parser.add_argument("--spatial_dimension", type=int, default=2)
+    parser.add_argument("--image_size", type=int, default=None)
+    parser.add_argument("--image_roi", default=None, type=ast.literal_eval)
+    parser.add_argument("--is_grayscale", type=int, default=0)
+    parser.add_argument("--prediction_type", default="epsilon")
+    parser.add_argument("--beta_schedule", default="linear_beta")
+    parser.add_argument("--beta_start", type=float, default=1e-4)
+    parser.add_argument("--beta_end", type=float, default=2e-2)
+    parser.add_argument("--b_scale", type=float, default=1.0)
+    parser.add_argument("--snr_shift", type=float, default=1)
+    parser.add_argument("--vqvae_checkpoint", default=None)
+    parser.add_argument("--latent_pad", default=None, type=ast.literal_eval)
+    parser.add_argument("--eval_checkpoint", default=None)
+    parser.add_argument("--ddpm_checkpoint_epoch", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the hand-written kernels) or cpu (the plain PyTorch path)")
+
+
+def parse_args_serve(argv=None) -> argparse.Namespace:
+    """``python -m ddpm_ood_tpu_torch.serve``: the flags and defaults of the
+    JAX package's ``scripts/serve.py``, with ``--image_roi`` and
+    ``--latent_pad`` parsed by ast.literal_eval, plus ``--device``."""
+    import os
+
+    p = argparse.ArgumentParser(description="Serve OOD scores for a trained run over HTTP.")
+    _run_model_flags(p)
+    p.add_argument("--num_inference_steps", type=int, default=100)
+    p.add_argument("--inference_skip_factor", type=int, default=1)
+    p.add_argument("--sampler", default="plms")
+    p.add_argument("--use_ema", type=int, default=0,
+                   help="serve with the checkpoint's EMA weights (ema_model_state_dict)")
+    p.add_argument("--score_elbo", type=int, default=0,
+                   help="also return z_score_elbo per image (needs a results_val.csv "
+                   "produced with --score_elbo=1)")
+    p.add_argument("--score_ssim", type=int, default=0,
+                   help="also return z_score_ssim per image (needs a results_val.csv "
+                   "produced with --score_ssim=1)")
+    p.add_argument("--quantize", default="none", choices=("none", "int8", "w8", "mixed"),
+                   help="int8 post-training quantization of the UNet: not ported "
+                   "(anything but none raises)")
+    p.add_argument("--recon_groups", default="auto",
+                   help="lane groups in the sweep; 'auto' = 16 for 2D, 3 for 3D, or an integer")
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="the sweep's batch; every request up to this size is wrap-padded to it")
+    p.add_argument("--batch_window_ms", type=float, default=0.0,
+                   help="dynamic request batching: coalesce concurrent requests arriving "
+                   "within this window into ONE sweep (up to batch_size images). 0 disables")
+    p.add_argument("--results_val", default=None,
+                   help="validation stats CSV (default <run>/ood/results_val.csv)")
+    p.add_argument("--flag_fpr", type=float, default=0.0,
+                   help="serve is_ood / ood_flags decisions thresholded at the (1 - flag_fpr) "
+                   "quantile of the validation images' per-image mean-z distribution "
+                   "(0.05 targets a 5%% false-positive rate on in-distribution traffic). "
+                   "0 disables (z-scores only)")
+    p.add_argument("--drift_window", type=int, default=256,
+                   help="the /statz mean_served_z_mse drift indicator is a windowed mean "
+                   "over the last N served images (a lifetime mean is also reported)")
+    p.add_argument("--auth_token", default=os.environ.get("DDPM_OOD_TPU_AUTH_TOKEN") or None,
+                   help="require 'Authorization: Bearer <token>' on every endpoint except "
+                   "GET /healthz (default from $DDPM_OOD_TPU_AUTH_TOKEN). The service binds "
+                   "0.0.0.0: set this anywhere the network is not already trusted")
+    p.add_argument("--aot_cache", default=None,
+                   help="an ahead-of-time compiled sweep artifact of the JAX package: "
+                   "TPU-only, refused by the port")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8700)
+    p.add_argument("--seed", type=int, default=None)
+    args = p.parse_args(argv)
+    if args.eval_checkpoint and not args.ddpm_checkpoint_epoch:
+        args.ddpm_checkpoint_epoch = args.eval_checkpoint
+    return args
+
+
+def parse_args_sample(argv=None) -> argparse.Namespace:
+    """``python -m ddpm_ood_tpu_torch.sample``: the flags and defaults of the
+    JAX package's ``scripts/sample.py``, with ``--image_roi`` and
+    ``--latent_pad`` parsed by ast.literal_eval, plus ``--device``."""
+    p = argparse.ArgumentParser(description="Generate samples from a trained checkpoint.")
+    _run_model_flags(p)
+    p.add_argument("--use_ema", type=int, default=0)
+    p.add_argument("--sampler", default="ddpm", choices=("ddpm", "plms", "ddim", "dpm"))
+    p.add_argument("--num_inference_steps", type=int, default=100)
+    p.add_argument("--n_samples", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=None, help="output directory (default <run_dir>/samples)")
+    args = p.parse_args(argv)
+    if args.eval_checkpoint and not args.ddpm_checkpoint_epoch:
+        args.ddpm_checkpoint_epoch = args.eval_checkpoint
+    return args

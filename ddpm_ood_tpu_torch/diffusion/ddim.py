@@ -1,7 +1,7 @@
 """DDIM sampler (arXiv:2010.02502): one UNet call per step, no history.
 
 Port of ``ddpm_ood_tpu/diffusion/ddim.py`` (``ddim_step``,
-``ddim_timesteps``):
+``ddim_timesteps``, ``ddim_denoise``):
 
     x_{t_prev} = sqrt(acp_prev) * x0_pred
                + sqrt(1 - acp_prev - sigma^2) * eps_pred
@@ -15,12 +15,13 @@ table read is clamped into [0, T - 1] first, as the JAX gather clamps.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .schedules import NoiseSchedule, epsilon_from_model_output, lanes, pred_x0_from_model_output
+from .schedules import (NoiseSchedule, active_suffix, epsilon_from_model_output, lanes,
+                        pred_x0_from_model_output)
 
 
 def ddim_step(sched: NoiseSchedule, model_output: torch.Tensor, t: torch.Tensor,
@@ -56,3 +57,18 @@ def ddim_timesteps(num_train_timesteps: int = 1000, num_inference_steps: int = 1
     step_ratio = num_train_timesteps // num_inference_steps
     ts = (np.arange(0, num_inference_steps) * step_ratio).round().astype(np.int32)
     return ts[::-1].copy()
+
+
+def ddim_denoise(sched: NoiseSchedule,
+                 model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                 x_start: torch.Tensor, timesteps_desc, t_start, num_inference_steps: int,
+                 eta: float = 0.0) -> torch.Tensor:
+    """Denoise x_start (B, ...) from t_start over the grid entries at or
+    below it (``plms.plms_denoise``'s contract); eta > 0 needs noise, which
+    this form does not draw, so ``ddim_step`` raises."""
+    step_ratio = sched.num_train_timesteps // num_inference_steps
+    b = x_start.shape[0]
+    x = x_start
+    for t in active_suffix(timesteps_desc, t_start, x_start.device):
+        x = ddim_step(sched, model_fn(x, t.expand(b)), t, t - step_ratio, x, eta=eta)
+    return x

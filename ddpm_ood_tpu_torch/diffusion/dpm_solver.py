@@ -2,7 +2,7 @@
 
 Port of ``ddpm_ood_tpu/diffusion/dpm_solver.py`` (``DPMState``,
 ``dpm_init_state``, ``_alpha_sigma``, ``_lambda``, ``dpm_step``,
-``dpm_timesteps``), in the data-prediction (x0) form:
+``dpm_timesteps``, ``dpm_denoise``), in the data-prediction (x0) form:
 
     alpha_t = sqrt(acp_t), sigma_t = sqrt(1 - acp_t), lambda_t = log(alpha/sigma)
     step s -> u (u < s in time), h = lambda_u - lambda_s:
@@ -22,12 +22,13 @@ are clamped before the read, and t < 0 reads acp = 1, as in JAX.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .ddim import ddim_timesteps
-from .schedules import NoiseSchedule, lanes, pred_x0_from_model_output
+from .schedules import NoiseSchedule, active_suffix, lanes, pred_x0_from_model_output
 
 
 @dataclasses.dataclass
@@ -99,3 +100,20 @@ def dpm_step(sched: NoiseSchedule, state: DPMState, model_output: torch.Tensor,
 def dpm_timesteps(num_train_timesteps: int = 1000, num_inference_steps: int = 100) -> np.ndarray:
     """Descending uniform grid, the DDIM grid: one model evaluation per entry."""
     return ddim_timesteps(num_train_timesteps, num_inference_steps)
+
+
+def dpm_denoise(sched: NoiseSchedule,
+                model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                x_start: torch.Tensor, timesteps_desc, t_start,
+                num_inference_steps: int) -> torch.Tensor:
+    """Denoise x_start (B, ...) from t_start over the grid entries at or
+    below it (``plms.plms_denoise``'s contract): the B samples ride the lane
+    axis, and the first step is first order."""
+    step_ratio = sched.num_train_timesteps // num_inference_steps
+    b = x_start.shape[0]
+    state = dpm_init_state(x_start)
+    active = torch.ones((b,), dtype=torch.bool, device=x_start.device)
+    for t in active_suffix(timesteps_desc, t_start, x_start.device):
+        state = dpm_step(sched, state, model_fn(state.x, t.expand(b)), t, t - step_ratio,
+                         t + step_ratio, active)
+    return state.x

@@ -16,6 +16,9 @@ over from one start point's trajectory to the next (``sampler="plms_ref"``,
 the parity path). Every decision of that chain is fixed by the grid, so a
 host-side step table (``_build_ref_exact_step_table``) drives one eager
 loop with one UNet call of batch B per row.
+
+``plms_denoise`` is one trajectory (the sample CLI's): the batch rides the
+lane axis, every lane with the same counter.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .schedules import NoiseSchedule, add_noise, epsilon_from_model_output, lanes
+from .schedules import (NoiseSchedule, active_suffix, add_noise,
+                        epsilon_from_model_output, lanes)
 
 
 def pndm_timesteps(num_train_timesteps: int = 1000, num_inference_steps: int = 100) -> np.ndarray:
@@ -135,6 +139,23 @@ def plms_step(sched: NoiseSchedule, state: PLMSState, model_output: torch.Tensor
         counter=torch.where(active, state.counter + 1, state.counter),
         cur_sample=torch.where(act, new_cur, state.cur_sample),
     )
+
+
+def plms_denoise(sched: NoiseSchedule,
+                 model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                 x_start: torch.Tensor, timesteps_desc, t_start,
+                 num_inference_steps: int) -> torch.Tensor:
+    """Denoise x_start (B, ...), noised to t_start, over the grid entries at
+    or below t_start with a fresh PLMS history: the reference's inner loop
+    (src/trainers/reconstruct.py:149-157) for one start point.
+    `model_fn(x, t (B,))` maps x's layout to the model output in it."""
+    step_ratio = sched.num_train_timesteps // num_inference_steps
+    b = x_start.shape[0]
+    state = plms_init_state(x_start)  # the B samples as B lanes of one counter
+    active = torch.ones((b,), dtype=torch.bool, device=x_start.device)
+    for t in active_suffix(timesteps_desc, t_start, x_start.device):
+        state = plms_step(sched, state, model_fn(state.x, t.expand(b)), t, step_ratio, active)
+    return state.x
 
 
 def _build_ref_exact_step_table(timesteps_desc: np.ndarray, t_starts: np.ndarray,

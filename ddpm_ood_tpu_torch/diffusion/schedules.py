@@ -175,3 +175,13 @@ def training_target(sched: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
     if sched.prediction_type == "v_prediction":
         return velocity_from_x0_eps(sched, x0, noise, t)
     raise ValueError(f"Unknown prediction type: {sched.prediction_type!r}")
+
+
+def active_suffix(timesteps_desc, t_start, device: torch.device) -> torch.Tensor:
+    """The grid entries at or below `t_start`, as an int32 tensor on `device`:
+    the steps of a trajectory that starts there. The JAX denoisers scan the
+    whole grid with the other steps masked out, which leave the state as it
+    is, so looping over this suffix gives the same result."""
+    ts = np.asarray(timesteps_desc.cpu() if isinstance(timesteps_desc, torch.Tensor)
+                    else timesteps_desc)
+    return torch.as_tensor(ts[ts <= int(t_start)].astype(np.int32), device=device)

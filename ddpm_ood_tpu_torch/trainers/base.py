@@ -11,7 +11,8 @@ the state the JAX package keeps in its ``TrainState``: Adam, the weight-EMA
 slot, ``start_epoch``, ``global_step`` (counted in images, as the
 reference), ``best_loss`` (1000.0 on a fresh run), resume from the
 checkpoint ``find_checkpoint`` picks, and ``save_checkpoint`` in the
-reference schema. There is no mesh and no FSDP.
+reference schema; ``reload_params`` re-reads a checkpoint into the model in
+place (the serving hot reload). There is no mesh and no FSDP.
 
 Precision: on CUDA the UNet and the VQ-VAE compute in bf16
 (``torch.autocast``) with their parameters in fp32 and GroupNorm statistics
@@ -152,6 +153,8 @@ class BaseTrainer:
         log.info(f"{n_params:,} model parameters on {device}")
 
     def _load(self, path: Path) -> None:
+        """The checkpoint's weights (its EMA slot with --use_ema), copied into
+        the model's existing parameters wherever they live."""
         payload = ckpt.load_checkpoint(path)
         key = "model_state_dict"
         if self.use_ema:
@@ -161,7 +164,21 @@ class BaseTrainer:
             key = "ema_model_state_dict"
             log.info("Using EMA weights (ema_model_state_dict) for the model")
         self.unet.load_state_dict(payload[key], strict=True)
+        self.start_epoch = int(payload.get("epoch", 0))
         log.info(f"Loaded checkpoint {path} (epoch {payload.get('epoch')})")
+
+    def reload_params(self, epoch: Optional[int] = None) -> Path:
+        """Re-read the run's checkpoint (an explicit epoch's, else the one
+        ``find_checkpoint`` picks) into the model in place: the serving
+        hot-reload hook. The UNet, ``model_fn`` and every program holding it
+        stay the same objects. Returns the checkpoint's path."""
+        path = ckpt.find_checkpoint(self.run_dir, int(epoch) if epoch is not None else None)
+        if path is None:
+            raise FileNotFoundError(f"No checkpoint under {self.run_dir}"
+                                    + (f" for epoch {epoch}" if epoch is not None else ""))
+        self._load(path)
+        log.info(f"Hot-reloaded weights from {path} (epoch {self.start_epoch})")
+        return path
 
     def _resume(self, path: Path) -> None:
         """Model, Adam, EMA, epoch, step count and best loss from `path`. A

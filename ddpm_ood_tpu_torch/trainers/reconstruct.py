@@ -32,8 +32,10 @@ scoring generator. Every scored batch is appended to a partial CSV at once;
 takes no gradient. ``DDPM_OOD_TPU_CRASH_AFTER_BATCHES=N`` SIGKILLs the
 process after N batches are persisted, to test the resume.
 
-``resolve_recon_groups`` stands in for the JAX package's
-``serve.py`` helper of the same name.
+The scoring program is assembled by ``serve.build_recon_program``, the
+one place the online service assembles its own, so that offline scoring and
+serving cannot diverge; ``resolve_recon_groups`` and the generator's
+``NOISE_SEED`` live there too.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ from ..losses.lpips import PerceptualLoss
 from ..noise import _native
 from ..noise.simplex import Simplex, generate_simplex_noise, simplex_noise_device
 from ..recon.sweep import ReconProgram
+from ..serve import NOISE_SEED, build_recon_program
+from ..serve import resolve_recon_groups  # noqa: F401 (its callers import it from here)
 from ..utils.checkpoint import find_checkpoint, missing_checkpoint_error
 from ..utils.profiling import start_trace, stop_trace
 from .base import BaseTrainer, refuse_flags
@@ -66,7 +70,6 @@ log = logging.getLogger(__name__)
 COLUMNS = ("filename", "type", "t", "perceptual_difference", "mse")
 ELBO_COLUMN = "elbo"  # after COLUMNS, with --score_elbo
 SSIM_COLUMN = "ssim_distance"  # after COLUMNS and elbo, with --score_ssim
-NOISE_SEED = 777  # the JAX pipeline's PRNGKey(777 + process_index), one process
 CRASH_ENV = "DDPM_OOD_TPU_CRASH_AFTER_BATCHES"  # fault injection for the resume
 
 
@@ -76,15 +79,6 @@ def refuse_unported_flags(args) -> None:
         ("--quantize", getattr(args, "quantize", "none") not in (None, "none"), ""),
         ("--aot_cache", bool(getattr(args, "aot_cache", None)), "a TPU-only feature"),
     ])
-
-
-def resolve_recon_groups(value, spatial_dimension: int = 2) -> int:
-    """'auto' -> 16 lane groups in 2D, 3 in 3D: the JAX package's choice,
-    tuned on a TPU and not measured on a GPU. Integers pass through."""
-    s = str("auto" if value is None else value).strip().lower()
-    if s != "auto":
-        return int(s)
-    return 3 if int(spatial_dimension) == 3 else 16
 
 
 def _stem(filename: str) -> str:
@@ -241,21 +235,10 @@ class Reconstruct(BaseTrainer):
 
     def _program(self, skip_factor: int) -> ReconProgram:
         if skip_factor not in self._programs:
-            a = self.args
             exact = self.simplex_noise and self.simplex_mode == "exact"
             device_noise = self.simplex_noise and not exact
-            self._programs[skip_factor] = ReconProgram(
-                sched=self.sched, model_fn=self.model_fn, device=self.device,
-                num_inference_steps=int(a.num_inference_steps),
-                inference_skip_factor=int(skip_factor), b_scale=self.b_scale,
-                num_groups=resolve_recon_groups(getattr(a, "recon_groups", "auto"),
-                                                self.spatial_dimension),
-                sampler=getattr(a, "sampler", "plms"), autocast_dtype=self.autocast_dtype,
-                perceptual_fn=self.perceptual, score_elbo=self.score_elbo,
-                score_ssim=self.score_ssim, score_error_maps=self.save_error_maps,
-                encode_fn=self.encode_fn, decode_fn=self.decode_fn, latent_pad=self.latent_pad,
-                # the loader resizes to image_size, so the latent shape is known
-                latent_sample_shape=self._latent_sample_shape() if self.image_size else None,
+            self._programs[skip_factor] = build_recon_program(
+                self, self.args, perceptual_fn=self.perceptual, skip_factor=skip_factor,
                 host_noise_fn=self._host_simplex_noise if exact else None,
                 simplex_noise_fn=self._device_simplex_noise if device_noise else None,
             )

@@ -10,7 +10,10 @@ CPU without launching a kernel (the port's own OpenSimplex library built),
 ``python -m ddpm_ood_tpu_torch.ood_detection``
 prints the AUROCs of the scoring CLI's CSVs, ``python -m
 ddpm_ood_tpu_torch.quality_check --device=cpu`` trains, scores with DPM-Solver++
-and the ELBO, and prints its JSON, and building the CUDA kernels where there
+and the ELBO, and prints its JSON, the online scoring service built from the
+scoring CLI's run scores one request through ``make_server`` in a thread,
+``python -m ddpm_ood_tpu_torch.sample --device=cpu`` writes its ``.npy``, and
+building the CUDA kernels where there
 is no nvcc raises KernelBuildError instead of returning. The same holds for
 scoring a 3D latent diffusion model (``--spatial_dimension=3
 --vqvae_checkpoint --latent_pad``) with fake-3D LPIPS, SSIM and error maps,
@@ -32,7 +35,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "orbax", "optax", "pandas", "sklearn", "matp
            "tensorboardX", "ddpm_ood_tpu")
 
 CHILD = r"""
-import contextlib, importlib, io, json, pkgutil, runpy, sys
+import contextlib, importlib, io, json, pkgutil, runpy, sys, threading, urllib.request
 
 # None in sys.modules is how Python spells "not installed": import raises
 # ModuleNotFoundError and importlib.util.find_spec returns None (torch probes
@@ -57,7 +60,26 @@ from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
 recon = reconstruct.main(json.loads(sys.argv[2]))
 trainer = train_ddpm.main(json.loads(sys.argv[3]))
 quality_argv = json.loads(sys.argv[5])
-sys.argv = ["ood_detection"] + json.loads(sys.argv[4])  # python -m ddpm_ood_tpu_torch.ood_detection
+ood_argv, serve_argv, sample_argv = (json.loads(sys.argv[i]) for i in (4, 6, 7))
+
+import numpy as np
+from ddpm_ood_tpu_torch import serve
+from ddpm_ood_tpu_torch.config import parse_args_serve
+
+server = serve.make_server(serve.build_service(parse_args_serve(serve_argv)), "127.0.0.1", 0)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+body = io.BytesIO()
+np.save(body, np.zeros((1, 16, 16, 1), np.float32))
+request = urllib.request.Request(f"http://127.0.0.1:{server.server_port}/score",
+                                 data=body.getvalue())
+with urllib.request.urlopen(request) as r:
+    served = json.loads(r.read())["scores"]
+server.shutdown()
+server.server_close()
+sys.argv = ["sample"] + sample_argv  # python -m ddpm_ood_tpu_torch.sample
+with contextlib.redirect_stdout(io.StringIO()):
+    runpy.run_module("ddpm_ood_tpu_torch.sample", run_name="__main__")
+sys.argv = ["ood_detection"] + ood_argv  # python -m ddpm_ood_tpu_torch.ood_detection
 printed = io.StringIO()
 with contextlib.redirect_stdout(printed):
     runpy.run_module("ddpm_ood_tpu_torch.ood_detection", run_name="__main__")
@@ -91,6 +113,9 @@ print(json.dumps({
     "quality": [json.loads(line) for line in quality.getvalue().splitlines()
                 if line.startswith("{")],
     "build": build,
+    "served": [sorted(served[0]), len(served[0]["per_t"])],
+    "samples": [list(a.shape) for a in map(np.load, sorted(
+        (recon.run_dir / "samples").glob("samples_*.npy")))],
     "leaked": sorted(m for m, mod in sys.modules.items()
                      if mod is not None and m.split(".")[0] in BLOCKED),
 }))
@@ -107,9 +132,15 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     quality = ["--device=cpu", "--epochs=1", "--size=8", "--n_train=8", "--n_eval=4",
                "--steps=10", "--skip=5", "--samplers=dpm@10/5", "--elbo",
                f"--workdir={tmp_path / 'quality'}"]
+    model = [f"--output_dir={tmp_path / 'score' / 'output'}", f"--model_name={MODEL}",
+             "--device=cpu", "--model_type=tiny", "--image_size=16", "--is_grayscale=1",
+             "--beta_schedule=scaled_linear_beta", "--beta_start=0.0015", "--beta_end=0.0195"]
+    serve = model + ["--num_inference_steps=10", "--inference_skip_factor=3", "--batch_size=4",
+                     "--recon_groups=2", "--host=127.0.0.1"]
+    sample = model + ["--sampler=dpm", "--num_inference_steps=10", "--n_samples=2"]
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, ",".join(BLOCKED), json.dumps(argv), json.dumps(train),
-         json.dumps(ood), json.dumps(quality)],
+         json.dumps(ood), json.dumps(quality), json.dumps(serve), json.dumps(sample)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "1",  # see test_torch_reconstruct.py
              "LPIPS_WEIGHTS_NPZ": str(tmp_path / "score" / "lpips.npz")},
@@ -119,7 +150,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     for mod in ("trainers.reconstruct", "trainers.ddpm_trainer", "train_ddpm", "config",
                 "data.transforms", "ops._kernels", "diffusion.ddim", "diffusion.dpm_solver",
                 "diffusion.elbo", "quality_check", "noise.simplex", "noise._native",
-                "utils.native_build", "utils.profiling"):
+                "utils.native_build", "utils.profiling", "serve", "sample", "bench_serve"):
         assert f"ddpm_ood_tpu_torch.{mod}" in got["modules"]
     assert got["leaked"] == []
     assert got["evals"] > 0 and got["launches"] == [0, 0, 0, 0]
@@ -146,6 +177,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
                           "hard_mse+elbo"}
     assert all(0.0 <= task["auroc"] <= 1.0 for task in entry.values())
     assert got["build"].startswith("KernelBuildError: nvcc not found"), got["build"]
+    assert got["served"] == [["per_t", "z_score_mse", "z_score_perceptual"], 4]
+    assert got["samples"] == [[2, 16, 16, 1]]
 
 
 CHILD_LDM = r"""
