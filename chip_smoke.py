@@ -125,11 +125,27 @@ Phases, each fatal on failure:
                  with --simplex_noise=1, without and with --remat=1 (images/s
                  and peak memory side by side, launch counts), the second's
                  --profile_dir trace naming the port's kernels.
+ 18. pipelines -- the pipeline scripts as users run them, each in a fresh
+                 interpreter and all at once: python -m
+                 ddpm_ood_tpu_torch.demo (checkpoints, five finite
+                 results CSVs, checkerboard AUROC >= 0.9); smoke_3d_ldm at
+                 its defaults (PLMS 10/3) and with SAMPLER=dpm STEPS=25
+                 SKIP=1 (eleven finite CSVs each, the AUROC table); the
+                 computer-vision dataset prep of a crafted raw tree (IDX
+                 gz, CIFAR tarball, SVHN .mat) with urllib's download
+                 refused (split sizes, images bit-equal to the archives).
+                 Meanwhile, in this process: the demo's stage argv lists
+                 with the launch counts (27 GroupNorm and 4 flash a
+                 forward on the cluster and tensor-core kernels, 4 dK/dV
+                 and 4 dQ a step), then the library example (a finite
+                 AUROC). Then parity_run on the prepped splits with
+                 checkpoint_300.pth and the results CSVs in place: stages
+                 1-3 skipped, auroc_table.json written. Seconds printed.
 
 Launch counts are set to 0 just before each CLI run (scoring, the serve
 CLI's service, the sample CLI, the samplers' scoring, the two simplex
-scoring runs, the two latent scoring runs, the training runs) and read just
-after. The line before the last is a JSON
+scoring runs, the two latent scoring runs, the training runs, each stage of
+the demo) and read just after. The line before the last is a JSON
 summary of the kernels; the last line is {"ok": true, "device": {...}}. The
 script imports no JAX.
 """
@@ -2565,6 +2581,249 @@ def phase_train_remat(dev: torch.device) -> dict:
 
 
 
+# the pipeline scripts (python -m ddpm_ood_tpu_torch.<script>)
+PIPELINE_TIMEOUT = 900  # seconds a script may take, as a whole
+DEMO_OUT = ("MNIST", "FashionMNIST_vflip", "FashionMNIST_hflip")
+LDM3D_RUNS = (("plms", {}), ("dpm", {"SAMPLER": "dpm", "STEPS": "25", "SKIP": "1"}))
+PIPELINE_COLUMNS = ("mse", "perceptual_difference")
+LDM3D_SETS = 2 + 9  # val, in and the nine held-out Decathlon tasks, 4 volumes each
+PREP_COUNTS = {"FashionMNIST": (40, 8), "MNIST": (20, 8), "CIFAR10": (10, 4), "SVHN": (6, 4)}
+# the dataset prep as ``python -m``, with urllib's download refused: every raw
+# file is in place, so it must not be asked for
+OFFLINE_PREP = ("import runpy, sys, urllib.request\n"
+                "def refuse(url, dest):\n"
+                "    raise OSError(f'no download in chip_smoke.py (asked for {url})')\n"
+                "urllib.request.urlretrieve = refuse\n"
+                "sys.argv = ['get_computer_vision_datasets', '--data_root', sys.argv[1]]\n"
+                "runpy.run_module('ddpm_ood_tpu_torch.data.get_computer_vision_datasets', "
+                "run_name='__main__')\n")
+
+
+def _python(args: list, what: str, env: dict = None) -> tuple:
+    """``python <args>`` from the repo root in a fresh interpreter; (seconds,
+    stdout). A non-zero exit fails the phase with the output's end."""
+    log(f"{what}: python " + " ".join(args if args[0] != "-c" else ["-c", "...", *args[2:]]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=PIPELINE_TIMEOUT, env={**os.environ, **(env or {})})
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise PhaseError(f"{what} exited {proc.returncode} after {seconds:.1f} s:\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return seconds, proc.stdout
+
+
+def _aurocs(path: Path) -> dict:
+    with open(path, newline="") as fh:
+        return {r["ood_data"]: float(r["Zscore_mse"]) for r in csv.DictReader(fh)}
+
+
+def _write_raw_archives(raw: Path) -> dict:
+    """MNIST and FashionMNIST as gzipped IDX, CIFAR-10 as its python tarball,
+    SVHN as its .mat files: the raw tree the dataset prep reads offline.
+    Returns one known image per dataset, {dataset: (split, index, array)}."""
+    import gzip
+    import io
+    import pickle
+    import struct
+    import tarfile
+
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(0)
+    known = {}
+    for name, (n_train, n_test) in PREP_COUNTS.items():
+        d = raw / name / "raw"
+        d.mkdir(parents=True)
+        if name in ("FashionMNIST", "MNIST"):
+            for stem, n in (("train-images-idx3-ubyte", n_train), ("t10k-images-idx3-ubyte",
+                                                                   n_test)):
+                imgs = rng.integers(0, 256, size=(n, 28, 28), dtype=np.uint8)
+                with gzip.open(d / f"{stem}.gz", "wb") as f:
+                    f.write(struct.pack(">IIII", 2051, n, 28, 28) + imgs.tobytes())
+                known.setdefault(name, ("train", 3, imgs[3]))
+        elif name == "CIFAR10":
+            batches = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+            with tarfile.open(d / "cifar-10-python.tar.gz", "w:gz") as tf:
+                for b in batches:
+                    n = n_test if b == "test_batch" else n_train // 5
+                    data = rng.integers(0, 256, size=(n, 3072), dtype=np.uint8)
+                    blob = pickle.dumps({b"data": data, b"labels": [0] * n})
+                    info = tarfile.TarInfo(f"cifar-10-batches-py/{b}")
+                    info.size = len(blob)
+                    tf.addfile(info, io.BytesIO(blob))
+                    if b == "test_batch":
+                        known[name] = ("test", 1, data[1].reshape(3, 32, 32))
+        else:
+            for fname, n in (("train_32x32.mat", n_train), ("test_32x32.mat", n_test)):
+                x = rng.integers(0, 256, size=(32, 32, 3, n), dtype=np.uint8)
+                savemat(d / fname, {"X": x, "y": np.ones((n, 1))})
+                known.setdefault(name, ("train", 2, np.transpose(x[..., 2], (2, 0, 1))))
+    return known
+
+
+def _demo_counted(root: Path) -> dict:
+    """The demo's stage argv lists run in this process, the launch counts set
+    to 0 before each stage and read after it; returns their sums."""
+    import contextlib
+    import io
+
+    from ddpm_ood_tpu_torch import demo, ood_detection, reconstruct, train_ddpm
+
+    ws = root / "demo_counted"
+    demo.make_dataset(ws)
+    launches = {}
+    for module, argv in demo.stages(ws, 2, "cuda"):
+        reset_launches()
+        if module == "train_ddpm":
+            trainer = train_ddpm.main(argv)
+            torch.cuda.synchronize()
+            got = read_launches()
+            want = _step_launches(trainer.step.forwards + trainer.sample_forwards,
+                                  trainer.step.backwards, bf16=True)
+            if got != want:
+                raise PhaseError(f"pipelines demo train_ddpm: launches {got} != {want}")
+        elif module == "reconstruct":
+            recon = reconstruct.main(argv)
+            torch.cuda.synchronize()
+            got = read_launches()
+            _check_launches(got, sum(p.model_evals for p in recon._programs.values()),
+                            "pipelines demo reconstruct", bf16=True)
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                auc = ood_detection.main(argv)[demo.MODEL]["Zscore_mse"][0]
+            got = read_launches()
+            if any(got.values()):
+                raise PhaseError(f"ood_detection launched kernels: {got}")
+        log(f"pipelines: demo {module} in this process, launches {got}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    log(f"pipelines: the demo's stages in this process: MNIST AUROC {auc:.4f}")
+    return launches
+
+
+def _library_example() -> float:
+    import contextlib
+    import io
+
+    from ddpm_ood_tpu_torch import minimal_library_usage
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        auc = minimal_library_usage.main(["--device=cuda"])
+    lines = printed.getvalue().splitlines()
+    log("pipelines: library example: " + " | ".join(lines))
+    if not (math.isfinite(auc) and lines[-1] == f"AUROC: {auc:.3f}"):
+        raise PhaseError(f"the library example printed no finite AUROC: {lines}")
+    return auc
+
+
+def _timed(fn, *args) -> tuple:
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return time.perf_counter() - t0, out
+
+
+def phase_pipelines(dev: torch.device, root: Path) -> dict:
+    """The pipeline scripts on the card, each in a fresh interpreter and all
+    at once: the demo, the 3D LDM smoke with PLMS and with DPM-Solver++, and
+    the dataset prep of a crafted raw tree with no download; meanwhile, in
+    this process, the demo's stages with the launch counts and the library
+    example. Then the parity run on the prepped splits with its training and
+    scoring outputs in place. The seconds of the stages overlap. Returns the
+    launch counts of the demo's stages."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ddpm_ood_tpu_torch import demo
+    from ddpm_ood_tpu_torch.diffusion.ddim import ddim_timesteps
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+
+    t_phase = time.perf_counter()
+    raw = root / "raw"
+    known = _write_raw_archives(raw)
+    scripts = {"demo": (["-m", "ddpm_ood_tpu_torch.demo", "--device=cuda",
+                         f"--workdir={root / 'demo'}"], None),
+               "dataset_prep": (["-c", OFFLINE_PREP, str(raw)], None)}
+    for sampler, env in LDM3D_RUNS:
+        scripts[f"ldm3d_{sampler}"] = (["-m", "ddpm_ood_tpu_torch.smoke_3d_ldm",
+                                        str(root / f"ldm3d_{sampler}"), "--device=cuda"], env)
+    with ThreadPoolExecutor(max_workers=len(scripts)) as pool:
+        running = {name: pool.submit(_python, args, f"pipelines {name}", env)
+                   for name, (args, env) in scripts.items()}
+        # one after the other: the launch counts are the process's
+        counted_s, launches = _timed(_demo_counted, root)
+        example_s, example_auc = _timed(_library_example)
+        secs = {name: f.result()[0] for name, f in running.items()}
+    secs.update(demo_counted=counted_s, library_example=example_s)
+
+    run = root / "demo" / "output" / demo.MODEL
+    if not (run / "checkpoint.pth").is_file() or not (run / "checkpoint_2.pth").is_file():
+        raise PhaseError(f"the demo wrote no checkpoint.pth / checkpoint_2.pth under {run}")
+    demo_starts = pndm_start_points(pndm_timesteps(1000, 10), 3)  # the demo's PLMS 10/3
+    for name in ("val", "in", *DEMO_OUT):
+        _check_csv(run / "ood" / f"results_{name}.csv", demo_starts, PIPELINE_COLUMNS, 8)
+    demo_auc = _aurocs(run / "ood" / "ood_scores_mse.csv")
+    log(f"pipelines: demo AUROCs {demo_auc}; card {CARD}")
+    if list(demo_auc) != list(DEMO_OUT) or not demo_auc["MNIST"] >= 0.9:
+        raise PhaseError(f"the demo's checkerboard AUROC is not >= 0.9: {demo_auc}")
+
+    ldm_auc = {}
+    for sampler, env in LDM3D_RUNS:
+        steps, skip = int(env.get("STEPS", 10)), int(env.get("SKIP", 3))  # the smoke's defaults
+        ood = root / f"ldm3d_{sampler}" / "output" / "ldm_decathlon" / "ood"
+        csvs = sorted(ood.glob("results_*.csv"))
+        if len(csvs) != LDM3D_SETS:
+            raise PhaseError(f"smoke_3d_ldm {sampler}: {len(csvs)} results CSVs, "
+                             f"expected {LDM3D_SETS}")
+        grid = (pndm_timesteps if sampler == "plms" else ddim_timesteps)(1000, steps)
+        for path in csvs:
+            _check_csv(path, pndm_start_points(grid, skip), PIPELINE_COLUMNS, 4)
+        ldm_auc[sampler] = _aurocs(ood / "ood_scores_mse.csv")
+        log(f"pipelines: smoke_3d_ldm {sampler}: AUROCs {ldm_auc[sampler]}")
+
+    splits = raw / "data_splits"
+    for name, (n_train, n_test) in PREP_COUNTS.items():
+        parts = {s: (splits / f"{name}_{s}.csv").read_text().split(",")
+                 for s in ("train", "val", "test")}
+        n_val = math.ceil(0.05 * n_train)
+        if [len(parts[s]) for s in ("train", "val", "test")] != [n_train - n_val, n_val, n_test]:
+            raise PhaseError(f"{name} split sizes {[len(v) for v in parts.values()]}")
+        if not all(Path(p).is_file() for v in parts.values() for p in v):
+            raise PhaseError(f"{name}: a split names a missing file")
+        split, i, img = known[name]
+        got = np.load(raw / name / "numpy" / split / f"{name}_{i}.npy")
+        if got.dtype != np.uint8 or not np.array_equal(got, img):
+            raise PhaseError(f"{name}: {split} image {i} is not the raw archive's")
+    if list(splits.glob("CelebA_*")):
+        raise PhaseError("dataset prep wrote CelebA splits with no CelebA raw files")
+    log(f"pipelines: dataset prep wrote {len(list(splits.glob('*.csv')))} split CSVs, images "
+        "bit-equal to the archives")
+
+    # the demo's CSVs in place of the parity run's scoring (MNIST's stand in
+    # for SVHN and CIFAR10), and a checkpoint_300.pth in place of training
+    out_root = root / "parity_out"
+    ood = out_root / "fashionmnist" / "ood"
+    ood.mkdir(parents=True)
+    (out_root / "fashionmnist" / "checkpoint_300.pth").write_bytes(b"")
+    for name in ("val", "in", *DEMO_OUT):
+        shutil.copy(run / "ood" / f"results_{name}.csv", ood / f"results_{name}.csv")
+    for name in ("SVHN", "CIFAR10"):
+        shutil.copy(run / "ood" / "results_MNIST.csv", ood / f"results_{name}.csv")
+    secs["parity_run"], out = _python(["-m", "ddpm_ood_tpu_torch.parity_run", str(raw),
+                                       str(out_root), "--device=cuda"], "pipelines parity_run")
+    if not all(f"[parity] stage {i}" in out for i in (1, 2, 3)) or \
+            not (ood / "auroc_table.json").is_file():
+        raise PhaseError(f"parity_run did not skip stages 1-3 and write auroc_table.json:\n{out}")
+    table = json.loads((ood / "auroc_table.json").read_text())["comparison"]
+    log("pipelines: parity_run skipped stages 1-3, auroc_table.json "
+        f"{ {k: v['measured_auroc'] for k, v in table.items()} }")
+
+    secs["phase"] = time.perf_counter() - t_phase
+    log(json.dumps({"pipelines": {"seconds": secs, "demo_auroc": demo_auc, "ldm3d_auroc": ldm_auc,
+                                  "library_example_auroc": example_auc, "card": CARD}}))
+    log(f"pipelines: phase took {secs['phase']:.1f} s")
+    return launches
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -2591,12 +2850,14 @@ def main() -> int:
             train_ldm = phase_train_ldm(dev, root)
             train = phase_train(dev)
             remat = phase_train_remat(dev)
+            pipelines = phase_pipelines(dev, root)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     paths = {"score": score, "serve": served, "sample": sampled, "samplers": samplers,
-             "simplex": simplex, "ldm": ldm, "train": train, "train_ldm": train_ldm, **remat}
+             "simplex": simplex, "ldm": ldm, "train": train, "train_ldm": train_ldm, **remat,
+             "pipelines": pipelines}
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}

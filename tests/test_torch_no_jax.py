@@ -1,7 +1,7 @@
 """The port runs where JAX does not exist.
 
 In a fresh interpreter whose import system refuses jax, flax, orbax, optax,
-pandas, sklearn and matplotlib (as on the GPU host, which has none of them)
+pandas, sklearn, matplotlib and Pillow (as on the GPU host, which has none of them)
 and the JAX package itself (the port keeps its own copies of what it needs),
 every module of ddpm_ood_tpu_torch imports, the tiny scoring CLI (with LPIPS
 from an npz, --score_ssim and --save_error_maps, and exact simplex noise,
@@ -32,7 +32,7 @@ from test_torch_train_cli import train_argv
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "orbax", "optax", "pandas", "sklearn", "matplotlib",
-           "tensorboardX", "ddpm_ood_tpu")
+           "tensorboardX", "PIL", "ddpm_ood_tpu")
 
 CHILD = r"""
 import contextlib, importlib, io, json, pkgutil, runpy, sys, threading, urllib.request
@@ -324,3 +324,117 @@ def test_ldm_3d_training_runs_without_jax(tmp_path):
     assert got["vq"] == [2, 1, ["checkpoint.pth", "checkpoint_1.pth", "train", "val",
                                 "vqvae_config.json"]]
     assert got["ldm"] == [2, 1, 4, ["checkpoint.pth", "checkpoint_1.pth"]]
+
+
+CHILD_PIPELINES = r"""
+import contextlib, io, json, runpy, subprocess, sys
+from pathlib import Path
+
+BLOCKED = set(sys.argv[1].split(","))
+for name in BLOCKED:
+    sys.modules[name] = None
+root = Path(sys.argv[2])
+
+printed = io.StringIO()
+real_run = subprocess.run
+
+
+def is_stage(cmd):
+    return list(cmd[:2]) == [sys.executable, "-m"] and cmd[2].startswith("ddpm_ood_tpu_torch.")
+
+
+def python_m(cmd, **kwargs):
+    # a stage's fresh interpreter would not inherit the block: run it here
+    if not is_stage(cmd):  # (torch asks lscpu once)
+        return real_run(cmd, **kwargs)
+    sys.argv = cmd[2:]
+    with contextlib.redirect_stdout(printed):
+        runpy.run_module(cmd[2], run_name="__main__")
+
+
+def hand(cmd, **kwargs):
+    if not is_stage(cmd):
+        return real_run(cmd, **kwargs)
+    handed.append(cmd[2])
+
+
+handed = []
+subprocess.run = python_m
+for mod, args in (("get_computer_vision_datasets", ["--data_root", str(root / "cv")]),
+                  ("get_mednist_datasets", ["--data_root", str(root / "mednist")]),
+                  ("get_decathlon_datasets", ["--data_root", str(root / "decathlon"),
+                                              "--tasks", "Task09"]),
+                  ("get_3dmedmnist", ["--data_root", str(root / "medmnist3d"),
+                                      "--tasks", "organmnist3d"]),
+                  ("get_cromis_dataset", ["--data_root", str(root / "cromis"),
+                                          "--source_dir", str(root / "cromis" / "cromis_src")])):
+    python_m([sys.executable, "-m", f"ddpm_ood_tpu_torch.data.{mod}", *args])
+python_m([sys.executable, "-m", "ddpm_ood_tpu_torch.parity_run", str(root / "parity" / "data"),
+          str(root / "parity" / "out"), "--device=cpu"])
+subprocess.run = hand
+from ddpm_ood_tpu_torch import demo, smoke_3d_ldm
+
+demo.main([f"--workdir={root / 'demo'}", "--device=cpu"])
+smoke_3d_ldm.main([str(root / "ldm3d"), "--device=cpu"])
+print(json.dumps({
+    "splits": sorted(p.name for p in root.glob("*/data_splits/*.csv")),
+    "table": json.loads((root / "parity" / "out" / "fashionmnist" / "ood" /
+                         "auroc_table.json").read_text())["model"],
+    "handed": handed,
+    "volumes": len(list((root / "ldm3d").glob("*/*.nii.gz"))),
+    "leaked": sorted(m for m, mod in sys.modules.items()
+                     if mod is not None and m.split(".")[0] in BLOCKED),
+}))
+"""
+
+
+def test_pipeline_scripts_run_without_jax(tmp_path):
+    """The dataset prep modules on raw archives, the parity run (stages 1-3
+    found done) and its report, and the demo's and the 3D smoke's data and
+    the CLIs they hand their stages to, with JAX, the JAX package, sklearn,
+    pandas and Pillow unimportable. (The library example runs so in
+    test_torch_pipeline_scripts.py, once, as it takes ~25 s.)"""
+    import shutil
+
+    from test_torch_dataset_prep import (
+        build_cifar_tarball, build_cromis, build_decathlon, build_fashion_raw, build_medmnist3d,
+        build_mednist, build_mnist, build_svhn,
+    )
+    from test_torch_parity_report import _write_results
+
+    for build in (build_mnist, build_fashion_raw, build_cifar_tarball, build_svhn):
+        build(tmp_path / "cv")
+    build_mednist(tmp_path / "mednist")
+    build_decathlon(tmp_path / "decathlon")
+    build_medmnist3d(tmp_path / "medmnist3d")
+    build_cromis(tmp_path / "cromis")
+    parity = tmp_path / "parity"
+    _write_results(parity / "out" / "fashionmnist" / "ood", seed=0)
+    for name in ("SVHN", "CIFAR10"):
+        shutil.copy(parity / "out" / "fashionmnist" / "ood" / "results_MNIST.csv",
+                    parity / "out" / "fashionmnist" / "ood" / f"results_{name}.csv")
+    (parity / "out" / "fashionmnist" / "checkpoint_300.pth").write_bytes(b"")
+    (parity / "data" / "data_splits").mkdir(parents=True)
+    for name in ("FashionMNIST_train", "FashionMNIST_val", "FashionMNIST_test", "MNIST_test",
+                 "SVHN_test", "CIFAR10_test"):
+        (parity / "data" / "data_splits" / f"{name}.csv").write_text("x.npy")
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_PIPELINES, ",".join(BLOCKED), str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    cv = [f"{d}_{s}.csv" for d in ("CIFAR10", "FashionMNIST", "MNIST", "SVHN")
+          for s in ("test", "train", "val")]
+    mednist = [f"{c}_{s}.csv" for c in ("AbdomenCT", "BreastMRI", "CXR", "ChestCT", "Hand",
+                                         "HeadCT") for s in ("test", "train", "val")]
+    assert got["splits"] == sorted(cv + mednist + [
+        f"{p}_{s}.csv" for p in ("CROMIS", "Decathlon_Task09", "organmnist3d")
+        for s in ("test", "train", "val")])
+    assert got["table"] == "fashionmnist"
+    assert got["handed"] == ["ddpm_ood_tpu_torch.train_ddpm", "ddpm_ood_tpu_torch.reconstruct",
+                             "ddpm_ood_tpu_torch.ood_detection",
+                             "ddpm_ood_tpu_torch.train_vqvae", "ddpm_ood_tpu_torch.train_ddpm",
+                             "ddpm_ood_tpu_torch.reconstruct", "ddpm_ood_tpu_torch.ood_detection"]
+    assert got["volumes"] == 52
