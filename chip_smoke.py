@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py    # from the repo root; needs one CUDA card
 
+(``python3 chip_smoke.py --ddp-rank <spec.json>`` is one rank of phase_ddp's
+torchrun launches, not a command to run by hand.)
+
 Phases, each fatal on failure:
   1. device   -- a CUDA card is required (there is no CPU fallback); prints the
                  torch version and the card's name and power limit.
@@ -50,11 +53,12 @@ Phases, each fatal on failure:
                  full width (batch 32, --flag_fpr=0.05, a bearer token):
                  its first request against the scoring CLI's results_in.csv
                  (per-t mse at rtol 1e-5, z_score_mse within 1e-4 of the
-                 offline z), 401 / healthz / statz / metricz / 413 /
-                 wrap-pad, 32 concurrent single-image clients through a
+                 offline z), 401 / healthz / statz / metricz / 413, 32
+                 concurrent single-image clients through a
                  50 ms BatchingScoringService window (at most 2 sweeps),
-                 POST /reload of a new checkpoint.pth (scores change, no
-                 kernel build, equal to a fresh service given the same
+                 POST /reload of a new checkpoint.pth (one image, wrap-
+                 padded: its score changes, no kernel build, equal to a
+                 fresh service given the same
                  noise); launch counts; latencies, flood reqs/s and
                  mean_sweep_seconds printed.
  10. sample   -- plms_denoise, ddim_denoise and dpm_denoise fp32 card vs
@@ -80,8 +84,9 @@ Phases, each fatal on failure:
                  serial, bit-identical; device-mode noise card against CPU
                  (lattice hashes equal, planes within 1e-5); an fp32 small-UNet
                  sweep on one host simplex draw, card against CPU; the scoring
-                 CLI at the main path's configuration with exact and with
-                 device noise (recons/s beside the main phase's Gaussian run,
+                 CLI at the main path's configuration with exact noise on
+                 three splits and device noise on the val split alone
+                 (recons/s beside the main phase's Gaussian run,
                  host seconds making noise and waiting for it, 27 GroupNorm and
                  4 flash launches per forward, previews); a crash after batch
                  1 (DDPM_OOD_TPU_CRASH_AFTER_BATCHES, exit -9) and --resume=1,
@@ -130,7 +135,8 @@ Phases, each fatal on failure:
                  ddpm_ood_tpu_torch.demo (checkpoints, five finite
                  results CSVs, checkerboard AUROC >= 0.9); smoke_3d_ldm at
                  its defaults (PLMS 10/3) and with SAMPLER=dpm STEPS=25
-                 SKIP=1 (eleven finite CSVs each, the AUROC table); the
+                 SKIP=1 (eleven finite CSVs each, the AUROC table; these
+                 two start before phase 14 and run beside phases 14-17); the
                  computer-vision dataset prep of a crafted raw tree (IDX
                  gz, CIFAR tarball, SVHN .mat) with urllib's download
                  refused (split sizes, images bit-equal to the archives).
@@ -141,13 +147,32 @@ Phases, each fatal on failure:
                  AUROC). Then parity_run on the prepped splits with
                  checkpoint_300.pth and the results CSVs in place: stages
                  1-3 skipped, auroc_table.json written. Seconds printed.
+ 19. ddp      -- beside the pipeline scripts, three launches of python -m
+                 torch.distributed.run --standalone, whose ranks run this
+                 script with --ddp-rank: 1 rank on NCCL (train_ddpm at the
+                 training phase's width, 512 images, batch 128, 2 epochs,
+                 then a resume to 3; --fsdp=1; a frozen-parameter epoch;
+                 zero-noise scoring of 8 images), 2 ranks on the one card
+                 over gloo (DDPM_OOD_TORCH_SHARED_CARD=1: the same training
+                 at 64 a rank and its resume, replicas bit-identical; the
+                 frozen epoch's loss against 1 rank's; the scoring CLI on
+                 64 images, PLMS 100/4, every (image, start point) once in
+                 rank 0's merged CSV; zero-noise scores against 1 rank's),
+                 and --fsdp=1 at 2 ranks against DDP's first epoch; fp32
+                 gradients of DDP and of FSDP2 at 2 ranks against the whole
+                 batch's (1e-3 of each tensor's largest); no DDP warning
+                 that a gradient's strides differ from its bucket's. Every
+                 rank's launch counts (27 GroupNorm and 4 flash a forward, 4
+                 dK/dV and 4 dQ a step, on the cluster and tensor-core
+                 kernels), FSDP2's bytes a card against bench_fsdp_hbm's
+                 arithmetic, images/s and seconds printed.
 
 Launch counts are set to 0 just before each CLI run (scoring, the serve
 CLI's service, the sample CLI, the samplers' scoring, the two simplex
 scoring runs, the two latent scoring runs, the training runs, each stage of
-the demo) and read just after. The line before the last is a JSON
-summary of the kernels; the last line is {"ok": true, "device": {...}}. The
-script imports no JAX.
+the demo, each run of each rank of phase_ddp) and read just after. The
+line before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. The script imports no JAX.
 """
 
 from __future__ import annotations
@@ -158,6 +183,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -918,7 +944,8 @@ def _serve_parity(dev: torch.device) -> None:
 
 def _start_serve_cli(root: Path) -> tuple:
     """``python -m ddpm_ood_tpu_torch.serve`` on a copy of the main run, in a
-    subprocess; returns (process, port, its output lines so far)."""
+    subprocess; returns (process, port, its output lines so far, the
+    perf_counter of its launch)."""
     import threading
 
     port = _free_port()
@@ -930,26 +957,35 @@ def _start_serve_cli(root: Path) -> tuple:
                             text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"))
     lines = []
     threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True).start()
-    return proc, port, lines
+    return proc, port, lines, time.perf_counter()
 
 
-def _check_serve_cli(proc, port: int, lines: list, images: np.ndarray) -> float:
-    """Waits for the CLI's serving line, then SIGTERMs it while a POST /score
-    is in flight: the response completes with 200 and the process exits 0.
-    Returns the seconds from launch to the serving line."""
-    import signal
-    import threading
-
-    t0 = time.perf_counter()
+def _wait_serve_cli(proc, port: int, lines: list, started: float) -> float:
+    """Waits for the CLI's serving line and checks /healthz; returns the
+    seconds from launch to the serving line. A failure kills the CLI."""
     try:
         while not any(ln.startswith("serving OOD scores for ") for ln in lines):
-            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+            if proc.poll() is not None or time.perf_counter() - started > 300:
                 raise PhaseError("serve CLI did not start serving:\n" + "".join(lines[-40:]))
             time.sleep(0.1)
-        ready = time.perf_counter() - t0
+        ready = time.perf_counter() - started
         status, body = _http(port, "/healthz")
         if status != 200 or json.loads(body)["batch_size"] != N_IMAGES:
             raise PhaseError(f"serve CLI /healthz: {status} {body[:200]}")
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return ready
+
+
+def _sigterm_serve_cli(proc, port: int, lines: list, images: np.ndarray) -> None:
+    """SIGTERMs the serving CLI while a POST /score is in flight: the
+    response completes with 200 and the process exits 0."""
+    import signal
+    import threading
+
+    try:
         inflight = {}
         client = threading.Thread(target=lambda: inflight.update(
             result=_http(port, "/score", _npy(images))))
@@ -974,9 +1010,8 @@ def _check_serve_cli(proc, port: int, lines: list, images: np.ndarray) -> float:
             not any("shutting down" in ln for ln in lines):
         raise PhaseError(f"serve CLI: SIGTERM during POST /score gave {status} with "
                          f"{len(scores)} scores and exit {rc}:\n" + "".join(lines[-40:]))
-    log(f"serve: CLI served after {ready:.1f} s (process start, model, warmup); SIGTERM during "
-        f"an in-flight POST /score: 200 with {len(scores)} scores, exit 0")
-    return ready
+    log(f"serve: CLI SIGTERMed during an in-flight POST /score: 200 with {len(scores)} "
+        "scores, exit 0")
 
 
 def phase_serve(dev: torch.device, root: Path) -> dict:
@@ -1006,16 +1041,25 @@ def phase_serve(dev: torch.device, root: Path) -> dict:
     images = np.moveaxis(batch["image"], 1, -1)
     stems = [Path(f).stem for f in batch["filename"]]
 
-    proc, cli_port, cli_lines = _start_serve_cli(root)  # its start overlaps the parity check
-    _serve_parity(dev)
-    cli_ready = _check_serve_cli(proc, cli_port, cli_lines, images)
-
-    out_dir = _copy_run(root, "serve")
-    args = parse_args_serve([f"--output_dir={out_dir}", *SERVE_ARGS, "--device=cuda",
-                             f"--auth_token={SERVE_TOKEN}"])
-    reset_launches()
-    service = serve.build_service(args)
+    # the CLI starts while the parity check and this process's warmup run;
+    # it serves before the timed requests, and is SIGTERMed with a request in
+    # flight while the fresh service of the reload check scores
+    proc, cli_port, cli_lines, cli_started = _start_serve_cli(root)
+    try:
+        _serve_parity(dev)
+        out_dir = _copy_run(root, "serve")
+        args = parse_args_serve([f"--output_dir={out_dir}", *SERVE_ARGS, "--device=cuda",
+                                 f"--auth_token={SERVE_TOKEN}"])
+        reset_launches()
+        service = serve.build_service(args)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    cli_ready = _wait_serve_cli(proc, cli_port, cli_lines, cli_started)
+    log(f"serve: CLI served after {cli_ready:.1f} s (process start, model, warmup)")
     if not service.warmup_seconds > 0:
+        proc.kill()
         raise PhaseError(f"serve: warmup took {service.warmup_seconds} s")
     program = service.program
     per_sweep = sum(len(ts) for ts, _ in program._groups)
@@ -1063,10 +1107,6 @@ def phase_serve(dev: torch.device, root: Path) -> dict:
         status, body = _http(port, "/score", b"x", SERVE_TOKEN,
                              {"Content-Length": str(service.max_body_bytes + 1)})
         checks["413 on an oversized Content-Length"] = status == 413
-        t1 = time.perf_counter()
-        status, body = _http(port, "/score", _npy(images[:1]), SERVE_TOKEN)
-        single_latency = time.perf_counter() - t1
-        checks["one image, wrap-padded"] = status == 200 and len(json.loads(body)["scores"]) == 1
         log(f"serve: responses {checks}")
         if not all(checks.values()):
             raise PhaseError(f"serve: wrong responses: {checks}")
@@ -1108,9 +1148,24 @@ def phase_serve(dev: torch.device, root: Path) -> dict:
         status, body = _http(port, "/reload", b"", SERVE_TOKEN)
         if status != 200:
             raise PhaseError(f"serve: POST /reload {status}: {body[:300]}")
+        # one image after the reload: wrap-padded to the batch, and timed
         noise_state = service.generator.get_state()
-        status, body = _http(port, "/score", _npy(images), SERVE_TOKEN)
-        reloaded = json.loads(body)["scores"]
+        t1 = time.perf_counter()
+        status, body = _http(port, "/score", _npy(images[:1]), SERVE_TOKEN)
+        single_latency = time.perf_counter() - t1
+        reloaded = json.loads(body)["scores"] if status == 200 else []
+        if len(reloaded) != 1:
+            raise PhaseError(f"serve: one image after the reload: {status} {body[:300]}")
+        cli_done = {}
+
+        def sigterm_cli():
+            try:
+                _sigterm_serve_cli(proc, cli_port, cli_lines, images)
+            except BaseException as e:  # re-raised after the fresh service's check
+                cli_done["error"] = e
+
+        cli_thread = threading.Thread(target=sigterm_cli)
+        cli_thread.start()
         fresh_trainer = BaseTrainer(args, dev)
         fresh = serve.ScoringService(
             serve.build_recon_program(fresh_trainer, args, perceptual_fn=PerceptualLoss(
@@ -1118,7 +1173,10 @@ def phase_serve(dev: torch.device, root: Path) -> dict:
             dedup(read_results_csv(out_dir / SMOKE_MODEL / "ood" / "results_val.csv")),
             N_IMAGES)
         fresh.generator.set_state(noise_state)
-        want = fresh.score(images)
+        want = fresh.score(images[:1])
+        cli_thread.join()
+        if "error" in cli_done:
+            raise cli_done["error"]
         fresh_err = max(abs(a["per_t"][str(t)]["mse"] - b["per_t"][t]["mse"]) / b["per_t"][t]["mse"]
                         for a, b in zip(reloaded, want) for t in b["per_t"])
         changed = sum(a["z_score_mse"] != b["z_score_mse"] for a, b in zip(reloaded, first))
@@ -1126,7 +1184,8 @@ def phase_serve(dev: torch.device, root: Path) -> dict:
                    or _kernels.LIB_PATH.stat().st_mtime_ns != lib_mtime)
         reloads = json.loads(_http(port, "/statz", token=SERVE_TOKEN)[1])["reloads"]
         log(f"serve: POST /reload -> {reloads} "
-            f"reload(s); {changed}/{N_IMAGES} z_score_mse changed; vs a fresh service on the new "
+            f"reload(s); one image, wrap-padded, {single_latency:.2f} s: z_score_mse changed "
+            f"{bool(changed)}; vs a fresh service on the new "
             f"checkpoint, same noise: per-t mse max_rel_err={fresh_err:.3e} tol={SERVE_RTOL:.0e}; "
             f"kernel library rebuilt or reloaded: {rebuilt}")
         if status != 200 or not changed or fresh_err > SERVE_RTOL or rebuilt \
@@ -1141,6 +1200,9 @@ def phase_serve(dev: torch.device, root: Path) -> dict:
             s.shutdown()
             s.server_close()
         batching.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     sweeps = 1 + int(stats["sweeps"]) + int(fresh.stats["sweeps"])  # warmup, served, fresh
     if program.model_evals != per_sweep * stats["sweeps"]:
         raise PhaseError(f"serve: {program.model_evals} forwards in {stats['sweeps']} sweeps")
@@ -2256,8 +2318,13 @@ def phase_train_ldm(dev: torch.device, root: Path) -> dict:
 # with --score_ssim=1 --save_error_maps=1, phase_main's data and weights)
 # with exact host noise and with on-device noise; phase_main's run is the
 # Gaussian one
-SIMPLEX_MODES = (("exact", ["--simplex_noise=1"]),
-                 ("device", ["--simplex_noise=1", "--simplex_noise_mode=device"]))
+# (mode, flags, the splits it scores): device noise scores the val split
+# alone, one batch, to keep the script's time
+SIMPLEX_MODES = (("exact", ["--simplex_noise=1"], ("val", "in", "checkerboard")),
+                 ("device", ["--simplex_noise=1", "--simplex_noise_mode=device", "--run_in=0",
+                             "--run_out=0"], ("val",)))
+SIMPLEX_PREVIEWS = {"val": "preview_val.npy", "in": "preview_in.npy",
+                    "checkerboard": "preview_out_3.npy"}
 DEVICE_NOISE_TOL = 1e-5  # simplex_noise_device planes of ~1, fp32 card vs CPU
 # crash and resume: the headline model on a shorter grid (PLMS 20/2), 2
 # batches of 32; the resumed CSV against an uninterrupted run's, each column
@@ -2389,7 +2456,7 @@ def phase_simplex_resume(dev: torch.device, root: Path, gaussian: dict) -> dict:
     # the scoring CLI at the headline: exact and device noise
     per_batch = sum(len(st) for st, _ in group_t_starts(ts, t_starts, 16))
     launches, summary = {}, {"gaussian": gaussian}
-    for mode, flags in SIMPLEX_MODES:
+    for mode, flags, splits in SIMPLEX_MODES:
         out = root / f"output_simplex_{mode}"
         (out / SMOKE_MODEL).mkdir(parents=True)
         save_checkpoint(out / SMOKE_MODEL / "checkpoint.pth", seeded_unet(0).state_dict())
@@ -2414,14 +2481,15 @@ def phase_simplex_resume(dev: torch.device, root: Path, gaussian: dict) -> dict:
         for name, value in counts.items():
             launches[name] = launches.get(name, 0) + value
         evals = prog.model_evals
-        if evals != 3 * per_batch:
-            raise PhaseError(f"simplex {mode}: {evals} UNet forwards, expected {3 * per_batch}")
+        if evals != len(splits) * per_batch:
+            raise PhaseError(f"simplex {mode}: {evals} UNet forwards, expected "
+                             f"{len(splits) * per_batch}")
         _check_launches(counts, evals, f"simplex {mode} scoring CLI", bf16=True)
-        for name in ("val", "in", "checkerboard"):
+        for name in splits:
             _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
         previews = sorted(p.name for p in recon.out_dir.glob("preview_*.npy"))
         grid_shape = np.load(recon.out_dir / "preview_val.npy").shape
-        if previews != ["preview_in.npy", "preview_out_3.npy", "preview_val.npy"] or \
+        if previews != sorted(SIMPLEX_PREVIEWS[name] for name in splits) or \
                 grid_shape != (2, 8, 32, 32, 1):
             raise PhaseError(f"simplex {mode}: previews {previews} {grid_shape}")
         rates = _rates(recon.batch_times)
@@ -2432,7 +2500,7 @@ def phase_simplex_resume(dev: torch.device, root: Path, gaussian: dict) -> dict:
             f"{[(n, round(s, 3)) for n, s in recon.batch_times]}; {GN_PER_FORWARD} GroupNorm "
             f"and {ATTN_PER_FORWARD} flash launches per forward; previews {previews}")
         log(f"simplex: {mode} {rates['all']:.2f} recons/s over all batches, {rates['warm']:.2f} "
-            f"over batches 2-3 (Gaussian, phase main: {gaussian['all']:.2f}, "
+            f"over batches 2 on (Gaussian, phase main: {gaussian['all']:.2f}, "
             f"{gaussian['warm']:.2f}); host seconds making noise {prog.host_noise_seconds:.3f}, "
             f"waited on it {prog.host_noise_wait_seconds:.3f}; device noise seconds "
             f"{device_noise_s:.3f}; CLI wall {wall:.1f} s; card {CARD}")
@@ -2445,13 +2513,23 @@ def phase_simplex_resume(dev: torch.device, root: Path, gaussian: dict) -> dict:
     for name in ("output_uninterrupted", "output_resumed"):
         (root / name / SMOKE_MODEL).mkdir(parents=True)
         save_checkpoint(root / name / SMOKE_MODEL / "checkpoint.pth", seeded_unet(0).state_dict())
-    want = cli.main([f"--output_dir={root / 'output_uninterrupted'}", *common])
-    k_resume = len(next(iter(want._programs.values())).t_starts)
     cmd = [sys.executable, "-m", "ddpm_ood_tpu_torch.reconstruct",
            f"--output_dir={root / 'output_resumed'}", *common, "--resume=1"]
     ood = root / "output_resumed" / SMOKE_MODEL / "ood"
-    crash = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                           env={**os.environ, "DDPM_OOD_TPU_CRASH_AFTER_BATCHES": "1"})
+    # the crashing process starts while the uninterrupted run scores here
+    crash_log = root / "crash_run.log"
+    with open(crash_log, "w") as sink:
+        crashing = subprocess.Popen(cmd, cwd=ROOT, stdout=sink, stderr=subprocess.STDOUT,
+                                    env={**os.environ, "DDPM_OOD_TPU_CRASH_AFTER_BATCHES": "1"})
+    try:
+        want = cli.main([f"--output_dir={root / 'output_uninterrupted'}", *common])
+        k_resume = len(next(iter(want._programs.values())).t_starts)
+        crashing.wait(timeout=600)
+    finally:
+        if crashing.poll() is None:
+            crashing.kill()
+            crashing.wait()
+    crash = subprocess.CompletedProcess(cmd, crashing.returncode, "", crash_log.read_text())
     partial = ood / ".results_val.partial.csv"
     rows = len(_read_rows(partial)) if partial.is_file() else 0
     log(f"simplex: the crashing run exited {crash.returncode} with {rows} rows in {partial.name}")
@@ -2723,14 +2801,26 @@ def _timed(fn, *args) -> tuple:
     return time.perf_counter() - t0, out
 
 
-def phase_pipelines(dev: torch.device, root: Path) -> dict:
+def start_ldm3d_smokes(pool, root: Path) -> dict:
+    """The 3D LDM smoke with PLMS and with DPM-Solver++, each in a fresh
+    interpreter on `pool`: {name: future of (seconds, output)}, which
+    phase_pipelines checks. They start before the latent-diffusion phases,
+    beside which they run."""
+    return {f"ldm3d_{sampler}": pool.submit(
+        _python, ["-m", "ddpm_ood_tpu_torch.smoke_3d_ldm", str(root / f"ldm3d_{sampler}"),
+                  "--device=cuda"], f"pipelines ldm3d_{sampler}", env)
+        for sampler, env in LDM3D_RUNS}
+
+
+def phase_pipelines(dev: torch.device, root: Path, ldm3d: dict) -> dict:
     """The pipeline scripts on the card, each in a fresh interpreter and all
-    at once: the demo, the 3D LDM smoke with PLMS and with DPM-Solver++, and
-    the dataset prep of a crafted raw tree with no download; meanwhile, in
-    this process, the demo's stages with the launch counts and the library
-    example. Then the parity run on the prepped splits with its training and
-    scoring outputs in place. The seconds of the stages overlap. Returns the
-    launch counts of the demo's stages."""
+    at once: the demo and the dataset prep of a crafted raw tree with no
+    download, beside the 3D LDM smokes that ``start_ldm3d_smokes`` started
+    (`ldm3d`, their futures); meanwhile, in this process, the demo's stages
+    with the launch counts and the library example. Then the parity run on
+    the prepped splits with its training and scoring outputs in place. The
+    seconds of the stages overlap. Returns the launch counts of the demo's
+    stages."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2744,16 +2834,13 @@ def phase_pipelines(dev: torch.device, root: Path) -> dict:
     scripts = {"demo": (["-m", "ddpm_ood_tpu_torch.demo", "--device=cuda",
                          f"--workdir={root / 'demo'}"], None),
                "dataset_prep": (["-c", OFFLINE_PREP, str(raw)], None)}
-    for sampler, env in LDM3D_RUNS:
-        scripts[f"ldm3d_{sampler}"] = (["-m", "ddpm_ood_tpu_torch.smoke_3d_ldm",
-                                        str(root / f"ldm3d_{sampler}"), "--device=cuda"], env)
     with ThreadPoolExecutor(max_workers=len(scripts)) as pool:
         running = {name: pool.submit(_python, args, f"pipelines {name}", env)
                    for name, (args, env) in scripts.items()}
         # one after the other: the launch counts are the process's
         counted_s, launches = _timed(_demo_counted, root)
         example_s, example_auc = _timed(_library_example)
-        secs = {name: f.result()[0] for name, f in running.items()}
+        secs = {name: f.result()[0] for name, f in {**running, **ldm3d}.items()}
     secs.update(demo_counted=counted_s, library_example=example_s)
 
     run = root / "demo" / "output" / demo.MODEL
@@ -2824,6 +2911,439 @@ def phase_pipelines(dev: torch.device, root: Path) -> dict:
     log(f"pipelines: phase took {secs['phase']:.1f} s")
     return launches
 
+
+# Multi-process training and scoring, under python -m
+# torch.distributed.run: the training phase's width (small UNet, 32x32x1),
+# 512 images, at 1 rank on NCCL and at 2 ranks sharing the one card over gloo
+# (DDPM_OOD_TORCH_SHARED_CARD=1, chosen here, never as a fallback: NCCL
+# refuses two ranks on one device), each rank batch 64 for the frozen
+# parity epoch so both runs compute every image in a batch of one shape.
+DDP_IMAGES, DDP_SCORE_IMAGES, DDP_ZERO_IMAGES = 512, 64, 8
+DDP_RANK_BATCH = 64
+DDP_TRAIN_ARGS = ["--model_type=small", "--image_size=32", "--is_grayscale=1", "--n_epochs=2",
+                  "--eval_freq=10", "--checkpoint_every=2", "--learning_rate=2e-4",
+                  "--num_workers=4", "--beta_schedule=scaled_linear_beta", "--beta_start=0.0015",
+                  "--beta_end=0.0195", "--device=cuda"]
+# the frozen epoch's mean loss, 2 ranks against 1: the same images in batches
+# of one shape, summed in another order
+DDP_LOSS_RTOL = 1e-4
+# zero-noise scores (PLMS 10/3), 2 ranks against 1, batches of 4 on both: per
+# image the same kernels on the same inputs; mse and LPIPS, relative
+DDP_SCORE_RTOL = 1e-3
+# --fsdp=1 at 2 ranks against DDP's first epoch, per step: the same
+# parameters, data and noise, the gradients averaged by a reduce-scatter
+# instead of an all-reduce (a sum of two and a halving, exact either way)
+DDP_FSDP_RTOL = 1e-4
+DDP_TIMEOUT = 600  # seconds a launch may take
+DDP_STRIDE_WARNING = "Grad strides do not match bucket view strides"
+
+
+def _content_draw(num_train_timesteps: int):
+    """(t, noise) as a function of each image's content, the same in any
+    process count or batch packing: the frozen parity epoch's draws."""
+    from ddpm_ood_tpu_torch.train.ddpm import channels_last
+
+    def draw(x0: torch.Tensor):
+        host = x0.float().cpu().numpy().reshape(len(x0), -1).astype(np.float64)
+        t = (np.abs(host.sum(1)) * 9973.0).astype(np.int64) % num_train_timesteps
+        noise = np.stack([np.random.default_rng(int(ti) + 17).normal(size=tuple(x0.shape[1:]))
+                          for ti in t]).astype(np.float32)
+        return (torch.from_numpy(t).to(x0.device),
+                channels_last(torch.from_numpy(noise).to(x0.device)))
+
+    return draw
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ddp_train_record(trainer) -> dict:
+    from ddpm_ood_tpu_torch.parallel import fsdp
+
+    moments = [v for s in trainer.step.optimizer.state.values() for k, v in s.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    params = list(trainer.unet.parameters())
+    rec = {"forwards": trainer.step.forwards + trainer.sample_forwards,
+           "backwards": trainer.step.backwards, "epoch_times": trainer.epoch_times,
+           "start_epoch": trainer.start_epoch, "global_step": trainer.global_step,
+           "best_loss": trainer.best_loss,
+           "local_bytes": fsdp.sharded_bytes_per_device(params + moments),
+           "shapes": [list(p.shape) for p in params],
+           "sharded": sum(map(fsdp.is_sharded, params))}
+    if not trainer.fsdp:
+        rec["digest"] = _digest(params)
+    return rec
+
+
+def _wrapped_grads(device: torch.device, wrap: str) -> dict:
+    """fp32 (TF32 off): the small UNet's gradients on this rank's half of a
+    seeded batch of 8 under DDP (``wrap_ddp``) or ``--fsdp=1``'s FSDP2 wrap
+    (gathered), and the same model's whole-batch gradients in this process
+    without a wrap: the worst error relative to each tensor's largest value
+    (``_grad_errs``), and the loss both ways."""
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.parallel import fsdp
+    from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+    from ddpm_ood_tpu_torch.train.ddpm import DDPMTrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.uniform(size=(8, 1, 32, 32)).astype(np.float32)).to(device)
+    noise = torch.from_numpy(rng.standard_normal((8, 1, 32, 32)).astype(np.float32)).to(device)
+    t = torch.from_numpy(rng.integers(0, 1000, 8)).to(device)
+    rank, world = pmesh.process_index(), pmesh.process_count()
+    part = slice(rank * 8 // world, (rank + 1) * 8 // world)
+    sched = make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195, device=device)
+    grads, losses = {}, {}
+    for how in ("whole", wrap):
+        model = seeded_unet(2).to(device, memory_format=torch.channels_last)
+        if how == "ddp":
+            kw = {"runner": pmesh.wrap_ddp(model, device)}
+        elif how == "fsdp":
+            replicated = fsdp.apply_fsdp(model, fsdp.min_size_from_env())
+            kw = {"sync_grads": lambda: fsdp.sync_replicated_grads(replicated)}
+        else:
+            kw = {}
+        step = DDPMTrainStep(model=model, sched=sched, **kw)
+        batch = (x0, noise, t) if how == "whole" else (x0[part], noise[part], t[part])
+        loss = step.grads(*batch)
+        losses[how] = (loss if how == "whole" else pmesh.all_reduce_mean(loss)).item()
+        grads[how] = {n: fsdp.full_tensor(p.grad).cpu() for n, p in model.named_parameters()}
+    worst, name, shift_free, scale = _grad_errs(grads["whole"], grads[wrap])
+    return {"grad_worst": worst, "grad_worst_name": name, "key_bias_grad": shift_free,
+            "grad_scale": scale, "loss_whole": losses["whole"], "loss_wrapped": losses[wrap]}
+
+
+def ddp_rank(spec_path: str) -> int:
+    """One rank of a phase_ddp launch: every run of the spec in this process
+    (one process group for all: torch names a re-made default group as the
+    last, and the rendezvous store still holds that group's keys), each
+    run's launch counts set to 0 before it and read after it; the records
+    go to ``<out>/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from ddpm_ood_tpu_torch import reconstruct, train_ddpm
+    from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+    from ddpm_ood_tpu_torch.trainers import DDPMTrainer, Reconstruct
+    from ddpm_ood_tpu_torch.trainers.base import resolve_device
+
+    spec = json.loads(Path(spec_path).read_text())
+    device = resolve_device("cuda")
+    pmesh.initialize_distributed(device, need_group=True)
+    rank, world = pmesh.process_index(), pmesh.process_count()
+    records = []
+    for run in spec["runs"]:
+        reset_launches()
+        t0 = time.perf_counter()
+        rec = {"name": run["name"], "kind": run["kind"]}
+        if run["kind"] == "train":
+            rec.update(_ddp_train_record(train_ddpm.main(run["argv"])))
+        elif run["kind"] == "parity":
+            args = train_ddpm.parse_args(run["argv"])
+            args.learning_rate = 1e-30
+            trainer = DDPMTrainer(args, device)
+            trainer._draw = _content_draw(trainer.sched.num_train_timesteps)
+            rec["loss"] = trainer.train_epoch(0)
+            rec.update(forwards=trainer.step.forwards, backwards=trainer.step.backwards)
+        elif run["kind"] == "grads":
+            rec.update(_wrapped_grads(device, run["wrap"]))
+        elif run["kind"] == "score":
+            recon = reconstruct.main(run["argv"])
+            rec["evals"] = sum(p.model_evals for p in recon._programs.values())
+            rec["batch_times"] = recon.batch_times
+        else:  # zero-noise scoring
+            args = reconstruct.parse_args(run["argv"])
+            recon = Reconstruct(args, device)
+            program = recon._program(args.inference_skip_factor)
+            program.host_noise_fn = lambda shape, t_starts: np.zeros(shape, np.float32)
+            recon.reconstruct(args)
+            rec["evals"] = program.model_evals
+            rec["csv"] = (recon.out_dir / "results_val.csv").read_text()
+        torch.cuda.synchronize()
+        rec["launches"] = read_launches()
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"ddp rank {rank}/{world} {run['name']}: {rec['seconds']:.1f} s, launches "
+            f"{rec['launches']}")
+        records.append(rec)
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(records))
+    pmesh.coordination_barrier("records written")
+    dist.destroy_process_group()
+    return 0
+
+
+def _ddp_launch(root: Path, name: str, nproc: int, runs: list, shared: bool) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=<nproc>
+    chip_smoke.py --ddp-rank <spec>``: (seconds, output, per-rank records);
+    a failed launch returns its output and no records."""
+    out = root / name
+    out.mkdir()
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"out": str(out), "runs": runs}))
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    env.pop("DDPM_OOD_TORCH_SHARED_CARD", None)
+    if shared:
+        env["DDPM_OOD_TORCH_SHARED_CARD"] = "1"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"), "--ddp-rank", str(spec)]
+    log(f"ddp: {name}: python -m torch.distributed.run --standalone --nproc_per_node={nproc} "
+        f"chip_smoke.py --ddp-rank ({', '.join(r['name'] for r in runs)})"
+        + (" with DDPM_OOD_TORCH_SHARED_CARD=1 (gloo)" if shared else " (NCCL)"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DDP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # the launcher and its ranks
+        text, _ = proc.communicate()
+        text += f"\nkilled after {DDP_TIMEOUT} s"
+    seconds = time.perf_counter() - t0
+    (out / "launch.log").write_text(text)
+    for line in text.splitlines():
+        if line.startswith("ddp rank"):
+            log("  " + line)
+    if proc.returncode != 0:
+        return seconds, text, None
+    records = [json.loads((out / f"rank{r}.json").read_text()) for r in range(nproc)]
+    return seconds, text, [{rec["name"]: rec for rec in recs} for recs in records]
+
+
+def _csv_rows(text: str) -> dict:
+    """{(filename, t): row} of a results CSV's text, the first of each."""
+    rows = {}
+    for r in csv.DictReader(text.splitlines()):
+        rows.setdefault((r["filename"], int(r["t"])), r)
+    return rows
+
+
+def _ddp_check_train(rec: dict, what: str, steps: int, images: int, start: int) -> None:
+    """A train run of one rank: its backwards, start epoch and image count,
+    and 27 GroupNorm and 4 flash launches a forward, 4 dK/dV and 4 dQ a
+    step, all on the cluster and tensor-core kernels."""
+    want = _step_launches(rec["forwards"], rec["backwards"], bf16=True)
+    if rec["launches"] != want:
+        raise PhaseError(f"ddp {what}: launches {rec['launches']} != expected {want}")
+    got = (rec["backwards"], rec["start_epoch"], rec["global_step"])
+    if got != (steps, start, images):
+        raise PhaseError(f"ddp {what}: (steps, start epoch, global_step) {got}, expected "
+                         f"{(steps, start, images)}")
+    if not math.isfinite(rec["best_loss"]):
+        raise PhaseError(f"ddp {what}: loss {rec['best_loss']}")
+
+
+def _ddp_fsdp_bytes(rec: dict, world: int, what: str) -> dict:
+    """Parameters and Adam's moments on the card against the policy's
+    arithmetic (``bench_fsdp_hbm``'s)."""
+    from ddpm_ood_tpu_torch.parallel import fsdp
+
+    planned = 3 * fsdp.planned_bytes_per_device(rec["shapes"], world)
+    full = 3 * fsdp.planned_bytes_per_device(rec["shapes"], 1)
+    if rec["local_bytes"] != planned or not rec["sharded"]:
+        raise PhaseError(f"ddp {what}: {rec['local_bytes']} bytes of parameters and moments on "
+                         f"the card, {rec['sharded']} sharded; the policy gives {planned}")
+    log(f"ddp: {what}: {rec['sharded']} of {len(rec['shapes'])} parameters sharded, "
+        f"{rec['local_bytes'] / 2**20:.2f} MiB of parameters and Adam moments a card "
+        f"(bench_fsdp_hbm's arithmetic {planned / 2**20:.2f}; replicated {full / 2**20:.2f})")
+    return {"MiB": rec["local_bytes"] / 2**20, "planned_MiB": planned / 2**20,
+            "replicated_MiB": full / 2**20}
+
+
+def phase_ddp(dev: torch.device, root: Path) -> dict:
+    """The multi-process path: train_ddpm under torchrun at 1 rank (NCCL)
+    and 2 ranks on the one card (gloo), a resume of each, --fsdp=1 at 1 and
+    at 2 ranks, a frozen-parameter epoch at both, the scoring CLI at 2 ranks
+    on 64 images (PLMS 100/4), zero-noise scoring (PLMS 10/3) at 1 and 2
+    ranks, and fp32 DDP and FSDP2 gradients at 2 ranks against the whole
+    batch's. The three launches run at once. Returns the launch counts of
+    every rank's runs, summed."""
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    root = root / "ddp"
+    root.mkdir()
+    rng = np.random.default_rng(5)
+    train_csv = _write_split(root, "train", DDP_IMAGES, False, rng)
+    score_csv = _write_split(root, "score", DDP_SCORE_IMAGES, False, rng)
+    for name in ("score_cli", "score_zero1", "score_zero2"):
+        (root / "output" / name).mkdir(parents=True)
+        save_checkpoint(root / "output" / name / "checkpoint.pth", seeded_unet(3).state_dict())
+    out = f"--output_dir={root / 'output'}"
+
+    def train(name, model, batch, *extra):
+        return {"name": name, "kind": "train", "argv": [
+            out, f"--model_name={model}", f"--training_ids={train_csv}",
+            f"--validation_ids={score_csv}", f"--batch_size={batch}", *DDP_TRAIN_ARGS, *extra]}
+
+    def parity(model):
+        return {"name": "parity", "kind": "parity", "argv": [
+            out, f"--model_name={model}", f"--training_ids={train_csv}",
+            f"--validation_ids={score_csv}", f"--batch_size={DDP_RANK_BATCH}", *DDP_TRAIN_ARGS]}
+
+    scoring = [out, f"--validation_ids={score_csv}", f"--in_ids={score_csv}", "--run_in=0",
+               "--run_out=0", "--device=cuda", *MAIN_ARGS[:3], *MAIN_ARGS[6:]]
+    score = {"name": "score", "kind": "score", "argv": [
+        *scoring, "--model_name=score_cli", "--batch_size=32", "--num_inference_steps=100",
+        "--inference_skip_factor=4"]}
+
+    def zero(model):
+        return {"name": "zero", "kind": "zero", "argv": [
+            *scoring, f"--model_name={model}", f"--first_n_val={DDP_ZERO_IMAGES}",
+            "--batch_size=4", "--num_inference_steps=10", "--inference_skip_factor=3"]}
+
+    launches_spec = [
+        (root, "rank1", 1, [train("train", "ddp1", TRAIN_BATCH),
+                            train("resume", "ddp1", TRAIN_BATCH, "--n_epochs=3"),
+                            train("fsdp", "fsdp1", TRAIN_BATCH, "--n_epochs=1", "--fsdp=1"),
+                            parity("parity1"), zero("score_zero1")], False),
+        (root, "rank2", 2, [train("train", "ddp2", DDP_RANK_BATCH),
+                            train("resume", "ddp2", DDP_RANK_BATCH, "--n_epochs=3"),
+                            parity("parity2"), score, zero("score_zero2"),
+                            {"name": "grads", "kind": "grads", "wrap": "ddp"}], True),
+        (root, "fsdp2", 2, [train("fsdp", "fsdp2", DDP_RANK_BATCH, "--n_epochs=1",
+                                  "--fsdp=1"),
+                            {"name": "grads", "kind": "grads", "wrap": "fsdp"}], True)]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(launches_spec)) as pool:
+        one, two, fsdp2 = pool.map(lambda spec: _ddp_launch(*spec), launches_spec)
+    secs = {"rank1": one[0], "rank2": two[0], "fsdp2": fsdp2[0]}
+    # DDP's reducer warns once when a gradient's strides differ from its
+    # bucket view's (a copy of that gradient every step)
+    stride_warned = {name: DDP_STRIDE_WARNING in text
+                     for name, (_, text, _) in (("rank1", one), ("rank2", two), ("fsdp2", fsdp2))}
+    log(f"ddp: DDP's bucket-view stride warning in the launches' output: {stride_warned}")
+    if any(stride_warned.values()):
+        raise PhaseError("ddp: DDP copied a gradient whose strides differ from its bucket "
+                         f"view's: {stride_warned}")
+    failed = [f"ddp {name} launch failed after {s:.1f} s:\n{text[-4000:]}"
+              for name, (s, text, recs) in (("rank1", one), ("rank2", two), ("fsdp2", fsdp2))
+              if recs is None]
+    if failed:
+        raise PhaseError("\n".join(failed))
+    (r1,), (a, b) = one[2], two[2]
+
+    # training: 2 epochs of 4 steps (1 rank: 128 a step; 2 ranks: 64 a rank),
+    # then 1 more from the checkpoint of epoch 2; global_step is this
+    # process's images; the 2 replicas are bit-identical
+    _ddp_check_train(r1["train"], "1 rank train", 8, 8 * TRAIN_BATCH, 0)
+    _ddp_check_train(r1["resume"], "1 rank resume", 4, 12 * TRAIN_BATCH, 2)
+    for rank, rec in enumerate((a, b)):
+        _ddp_check_train(rec["train"], f"2 ranks train, rank {rank}", 8, 8 * DDP_RANK_BATCH, 0)
+        _ddp_check_train(rec["resume"], f"2 ranks resume, rank {rank}", 4, 12 * DDP_RANK_BATCH,
+                         2)
+    for run in ("train", "resume"):
+        if a[run]["digest"] != b[run]["digest"]:
+            raise PhaseError(f"ddp 2 ranks {run}: the replicas differ "
+                             f"({a[run]['digest']} != {b[run]['digest']})")
+    _check_checkpoint(root / "output" / "ddp1" / "checkpoint_2.pth", 2, 8 * TRAIN_BATCH, 8)
+    _check_checkpoint(root / "output" / "ddp2" / "checkpoint_2.pth", 2, 8 * DDP_RANK_BATCH, 8)
+    rate = {"1 rank": r1["train"]["epoch_times"][1][0] / r1["train"]["epoch_times"][1][1],
+            "2 ranks": sum(r["train"]["epoch_times"][1][0] / r["train"]["epoch_times"][1][1]
+                           for r in (a, b))}
+    log(f"ddp: training images/s in epoch 2: {rate}; replicas identical after training and "
+        f"resume ({a['resume']['digest']}); card {CARD}")
+
+    # the frozen epoch: 2 ranks' mean loss against 1 rank's
+    losses = [r1["parity"]["loss"], a["parity"]["loss"], b["parity"]["loss"]]
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    log(f"ddp: frozen-parameter epoch loss 1 rank {losses[0]:.8f}, 2 ranks {losses[1]:.8f} "
+        f"(relative {rel:.2e}, tolerance {DDP_LOSS_RTOL:.0e})")
+    if losses[1] != losses[2] or not rel <= DDP_LOSS_RTOL:
+        raise PhaseError(f"ddp frozen epoch losses {losses} disagree")
+    for rec, what in ((r1["parity"], "1 rank parity"), (a["parity"], "2 ranks parity"),
+                      (b["parity"], "2 ranks parity")):
+        want = _step_launches(rec["forwards"], rec["backwards"], bf16=True)
+        if rec["launches"] != want:
+            raise PhaseError(f"ddp {what}: launches {rec['launches']} != expected {want}")
+
+    # --fsdp=1: 1 rank on NCCL, 2 on the card over gloo; the 2-rank epoch
+    # against the DDP run's first epoch (same init, data and noise)
+    f1, (fa, fb) = r1["fsdp"], fsdp2[2]
+    _ddp_check_train(f1, "1 rank fsdp", 4, 4 * TRAIN_BATCH, 0)
+    fsdp_bytes = {"1 rank": _ddp_fsdp_bytes(f1, 1, "fsdp at 1 rank")}
+    for rank, rec in enumerate((fa["fsdp"], fb["fsdp"])):
+        _ddp_check_train(rec, f"2 ranks fsdp, rank {rank}", 4, 4 * DDP_RANK_BATCH, 0)
+        fsdp_bytes[f"2 ranks, rank {rank}"] = _ddp_fsdp_bytes(rec, 2,
+                                                              f"fsdp at 2 ranks, rank {rank}")
+    ddp_steps = _scalars(root / "output" / "ddp2" / "train" / "scalars.jsonl")["loss"][:4]
+    fsdp_steps = _scalars(root / "output" / "fsdp2" / "train" / "scalars.jsonl")["loss"]
+    rel_fsdp = max(abs(f - d) / abs(d) for f, d in zip(fsdp_steps, ddp_steps))
+    log(f"ddp: --fsdp=1 at 2 ranks, step losses {fsdp_steps} against DDP's {ddp_steps} "
+        f"(worst relative {rel_fsdp:.2e}, tolerance {DDP_FSDP_RTOL:.0e})")
+    if len(fsdp_steps) != 4 or not rel_fsdp <= DDP_FSDP_RTOL:
+        raise PhaseError("ddp: --fsdp=1 at 2 ranks does not follow DDP's first epoch")
+
+    # the gradients themselves (Adam's updates do not see their scale): fp32,
+    # 2 ranks' DDP and FSDP2 gradients against the whole batch's in-process
+    grad_errs = {}
+    for wrap, recs in (("ddp", (a, b)), ("fsdp", (fa, fb))):
+        for rank, rec in enumerate(recs):
+            g = rec["grads"]
+            loss_err = abs(g["loss_wrapped"] - g["loss_whole"]) / abs(g["loss_whole"])
+            grad_errs[f"{wrap} rank {rank}"] = g["grad_worst"]
+            log(f"ddp: fp32 {wrap} gradients at 2 ranks against the whole batch's, rank {rank}: "
+                f"worst rel_err={g['grad_worst']:.3e} ({g['grad_worst_name']}) "
+                f"tol={GRAD_TOL:.0e}; loss rel_err={loss_err:.3e}; key-bias gradients at most "
+                f"{g['key_bias_grad']:.3e} of a largest {g['grad_scale']:.3e}")
+            if not (g["grad_worst"] <= GRAD_TOL and loss_err <= GRAD_TOL
+                    and g["key_bias_grad"] <= 1e-5 * g["grad_scale"]):
+                raise PhaseError(f"ddp: {wrap} gradients at 2 ranks, rank {rank}, differ from "
+                                 f"the whole batch's: {g}")
+
+    # scoring at 2 ranks: each rank a shard, rank 0 the merged CSV with
+    # every (image, start point) once
+    starts = pndm_start_points(pndm_timesteps(1000, 100), 4)
+    ood = root / "output" / "score_cli" / "ood"
+    _check_csv(ood / "results_val.csv", starts, PIPELINE_COLUMNS, DDP_SCORE_IMAGES)
+    for r in range(2):
+        if not (ood / f".results_val.shard{r}.csv").is_file():
+            raise PhaseError(f"ddp score: no shard of rank {r}")
+    for rank, rec in enumerate((a, b)):
+        _check_launches(rec["score"]["launches"], rec["score"]["evals"],
+                        f"ddp score, rank {rank}", bf16=True)
+    recons = sum(n for rec in (a, b) for n, _ in rec["score"]["batch_times"])
+    log(f"ddp: scoring CLI at 2 ranks on {DDP_SCORE_IMAGES} images: {recons} recons in "
+        f"{max(rec['score']['seconds'] for rec in (a, b)):.1f} s")
+
+    # zero noise: 2 ranks' merged scores against 1 rank's
+    want, got = _csv_rows(r1["zero"]["csv"]), _csv_rows(a["zero"]["csv"])
+    zero_starts = pndm_start_points(pndm_timesteps(1000, 10), 3)
+    if sorted(want) != sorted(got) or len(want) != DDP_ZERO_IMAGES * len(zero_starts):
+        raise PhaseError(f"ddp zero-noise: 2 ranks scored {sorted(got)[:4]}..., 1 rank "
+                         f"{sorted(want)[:4]}...")
+    worst = max(abs(float(got[k][c]) - float(want[k][c])) / max(abs(float(want[k][c])), 1e-12)
+                for k in want for c in PIPELINE_COLUMNS)
+    log(f"ddp: zero-noise scores, 2 ranks against 1: worst relative difference {worst:.2e} "
+        f"(tolerance {DDP_SCORE_RTOL:.0e})")
+    if not worst <= DDP_SCORE_RTOL:
+        raise PhaseError(f"ddp zero-noise scores differ by {worst:.2e} relative")
+    for rec, what in ((r1["zero"], "1 rank"), (a["zero"], "2 ranks"), (b["zero"], "2 ranks")):
+        _check_launches(rec["launches"], rec["evals"], f"ddp zero-noise, {what}", bf16=True)
+
+    launches = {}
+    for recs in (one[2], two[2], fsdp2[2]):
+        for rank_recs in recs:
+            for rec in rank_recs.values():
+                for k, v in rec["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    secs["phase"] = time.perf_counter() - t_phase
+    log(json.dumps({"ddp": {"seconds": secs, "train_images_per_s": rate,
+                            "frozen_epoch_loss": losses[:2], "fsdp_bytes": fsdp_bytes,
+                            "zero_noise_worst_rel": worst, "grad_worst_rel": grad_errs,
+                            "stride_warning": stride_warned,
+                            "card": CARD}}))
+    log(f"ddp: phase took {secs['phase']:.1f} s")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -2845,19 +3365,30 @@ def main() -> int:
             samplers = phase_samplers(dev, root)
             simplex = phase_simplex_resume(dev, root, gaussian)
             phase_ldm_pieces(dev, npz)
-            ldm = phase_ldm(dev, root)
-            phase_vqvae_step(dev, npz)
-            train_ldm = phase_train_ldm(dev, root)
-            train = phase_train(dev)
-            remat = phase_train_remat(dev)
-            pipelines = phase_pipelines(dev, root)
+            # the 3D LDM smoke scripts beside the latent-diffusion and
+            # training phases, and the torchrun launches beside the other
+            # pipeline scripts: fresh interpreters, mostly starting up and
+            # host-bound
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(len(LDM3D_RUNS)) as early:
+                ldm3d = start_ldm3d_smokes(early, root)
+                ldm = phase_ldm(dev, root)
+                phase_vqvae_step(dev, npz)
+                train_ldm = phase_train_ldm(dev, root)
+                train = phase_train(dev)
+                remat = phase_train_remat(dev)
+                with ThreadPoolExecutor(1) as pool:
+                    ddp_future = pool.submit(phase_ddp, dev, root)
+                    pipelines = phase_pipelines(dev, root, ldm3d)
+                    ddp = ddp_future.result()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     paths = {"score": score, "serve": served, "sample": sampled, "samplers": samplers,
              "simplex": simplex, "ldm": ldm, "train": train, "train_ldm": train_ldm, **remat,
-             "pipelines": pipelines}
+             "pipelines": pipelines, "ddp": ddp}
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -2875,4 +3406,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase_ddp's torchrun launches
+        sys.exit(ddp_rank(sys.argv[2]))
     sys.exit(main())

@@ -57,10 +57,11 @@ def main(argv=None) -> dict:
     from .quality_check import card_name_and_power
     from .recon.sweep import ReconProgram
     from .serve import BatchingScoringService, ScoringService, collect_stats, make_server
-    from .trainers.base import refuse_flags, resolve_device
+    from .trainers.base import refuse_flags, refuse_multi_process, resolve_device
 
     args = parse_args(argv)
     refuse_flags(args, [("--quantize", args.quantize != "none", "")])
+    refuse_multi_process("the serving benchmark")
     device = resolve_device(args.device)
     batch = 4 if args.quick else args.batch
     steps = 10 if args.quick else args.steps

@@ -10,10 +10,11 @@ package's ``scripts/serve.py`` and ``scripts/sample.py``, which keep
 ``--image_roi`` and ``--latent_pad`` as raw strings: here they are parsed
 with ast.literal_eval too, and ``--device`` is added.
 
-Flags the port does not serve (``--quantize`` other than none, ``--aot_cache``,
-``--fsdp``) are still parsed here; the CLI that reads them raises
-NotImplementedError naming the flag. ``--profile_dir`` writes a
-``torch.profiler`` trace where the JAX CLIs write a ``jax.profiler`` one.
+Flags the port does not serve (``--quantize`` other than none, ``--aot_cache``)
+are still parsed here; the CLI that reads them raises NotImplementedError
+naming the flag. ``--fsdp=1`` shards with FSDP2 (``parallel/fsdp.py``).
+``--profile_dir`` writes a ``torch.profiler`` trace where the JAX CLIs write
+a ``jax.profiler`` one.
 """
 
 from __future__ import annotations
@@ -103,12 +104,11 @@ def parse_args_train_ddpm(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--fsdp", type=int, default=0,
-        help="Shard UNet params + optimizer state (+ weight EMA) along the "
-        "data mesh axis (framework extension, parallel/fsdp.py): the ZeRO-3/"
-        "FSDP pattern — GSPMD inserts the all-gathers before use and "
-        "reduce-scatters after the backward from the input shardings alone. "
-        "Numerics match replicated DP (tests/test_fsdp.py); reclaims "
-        "per-chip static HBM on multi-device meshes.",
+        help="Shard the UNet's parameters, Adam state and weight EMA over the "
+        "processes with FSDP2 (ddpm_ood_tpu_torch/parallel/fsdp.py): the "
+        "ZeRO-3/FSDP pattern, all-gathers before use and reduce-scatters "
+        "after the backward. Numerics match DDP (tests/test_torch_fsdp.py); "
+        "reclaims per-card memory under torchrun with more than one process.",
     )
     parser.add_argument(
         "--learning_rate", type=float, default=2.5e-5,
@@ -205,10 +205,10 @@ def parse_args_train_vqvae(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--fsdp", type=int, default=0,
-        help="Shard G and D params + optimizer state along the data mesh "
-        "axis (framework extension, parallel/fsdp.py; ZeRO-3 pattern via "
-        "GSPMD input shardings). Numerics match replicated DP; reclaims "
-        "per-chip static HBM — matters most for the 3D pixel-space G step.",
+        help="Shard G's and D's parameters and Adam state over the processes "
+        "with FSDP2 (ddpm_ood_tpu_torch/parallel/fsdp.py). Numerics match "
+        "DDP; reclaims per-card memory, which matters most for the 3D "
+        "pixel-space G step.",
     )
     parser.add_argument("--batch_size", type=int, default=4, help="Training batch size.")
     parser.add_argument("--n_epochs", type=int, default=300, help="Number of epochs to train.")

@@ -15,7 +15,10 @@ batch mean and the biased batch variance E[x^2] - E[x]^2 (clipped at 0) in
 fp32, and updates the running statistics as ``m * running + (1 - m) *
 batch`` with m = 0.9 and the same biased variance (torch's ``BatchNorm``
 keeps m = 0.1 for the new value and the unbiased variance); in eval mode it
-normalises with the running statistics.
+normalises with the running statistics. Under torchrun the train-mode mean
+and E[x^2] are taken over the global batch (a differentiable all-reduce over
+the processes, whose batches are equal), as BatchNorm over the JAX
+package's batch-sharded mesh takes them.
 
 ``init_like_flax_`` draws Flax's default initialisation from a torch
 generator: lecun-normal kernels (truncated normal, std sqrt(1 / fan_in)),
@@ -31,7 +34,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import process_count
+
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+
+
+def _global_means(mean: torch.Tensor, mean_sq: torch.Tensor):
+    """The means over every process's equal batch, differentiably: the
+    backward all-reduces the gradients, so each process's D gradient holds
+    the paths through the other processes' losses."""
+    from torch.distributed.nn.functional import all_reduce
+
+    both = all_reduce(torch.stack([mean, mean_sq])) / process_count()
+    return both[0], both[1]
 
 
 class FlaxBatchNorm(nn.Module):
@@ -52,8 +67,10 @@ class FlaxBatchNorm(nn.Module):
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             if self.training:
                 dims = [0] + list(range(2, x.dim()))
-                mean = xf.mean(dims)
-                var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+                mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
+                if process_count() > 1:
+                    mean, mean_sq = _global_means(mean, mean_sq)
+                var = (mean_sq - mean * mean).clamp_min(0.0)
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

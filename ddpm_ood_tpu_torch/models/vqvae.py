@@ -50,6 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import all_reduce_sum_, process_count
+
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 
@@ -214,11 +216,17 @@ class EMAQuantizer(nn.Module):
         """Fold the gathered counts and sums into the EMA statistics and
         recompute the codebook from them with Laplace smoothing
         (``ddpm_ood_tpu/models/vqvae.py``'s train branch); a no-op when
-        nothing was gathered."""
+        nothing was gathered. Under torchrun the counts and sums are summed
+        over the processes first, so the statistics are the global batch's,
+        as the JAX package computes them and as monai's ``ddp_sync`` does,
+        and every process's codebook stays the same."""
         if self._stats is None:
             return
         counts, sums = self._stats
         self._stats = None
+        if process_count() > 1:
+            flat = all_reduce_sum_(torch.cat([counts[:, None], sums], dim=1))
+            counts, sums = flat[:, 0], flat[:, 1:]
         d = self.decay
         cs = d * self.ema_cluster_size + (1.0 - d) * counts
         ea = d * self.ema_w + (1.0 - d) * sums
@@ -244,8 +252,9 @@ class VQVAE(nn.Module):
     """The stage-1 model of latent diffusion. Constructor arguments are the
     keys of the reference's ``vqvae_config.json`` (``dropout`` acts only in
     training, where ``train/vqvae.py`` refuses it, and ``ddp_sync`` is
-    accepted for the file's sake: there is one device), plus ``remat``,
-    which is not part of the file."""
+    accepted for the file's sake: the codebook statistics are always summed
+    over the processes, as in the JAX package), plus ``remat``, which is not
+    part of the file."""
 
     def __init__(
         self,

@@ -235,13 +235,14 @@ def main(argv=None) -> dict:
     import logging
 
     from .config import parse_args_reconstruct, parse_args_train_ddpm
-    from .trainers.base import resolve_device
+    from .trainers.base import refuse_multi_process, resolve_device
     from .trainers.ddpm_trainer import DDPMTrainer
     from .trainers.reconstruct import Reconstruct
 
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    refuse_multi_process("the quality gate")
     device = resolve_device(args.device)
 
     root = Path(args.workdir) if args.workdir else Path(tempfile.mkdtemp())

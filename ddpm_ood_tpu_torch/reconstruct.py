@@ -1,11 +1,15 @@
 """Reconstruction sweep CLI of the PyTorch port.
 
     python -m ddpm_ood_tpu_torch.reconstruct [reconstruct.py flags] [--device=cuda|cpu]
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m ddpm_ood_tpu_torch.reconstruct [the same flags]
 
 It takes the JAX package's ``reconstruct.py`` flags
 (``config.parse_args_reconstruct``, a copy of the JAX package's parser) plus ``--device``
-(default ``cuda``, which raises when there is no card). Flags the port does
-not serve yet raise NotImplementedError naming the flag.
+(default ``cuda``, which raises when there is no card). Under torchrun each
+process scores its partition of every dataset on its card, and rank 0
+merges the processes' CSVs. Flags the port does not serve yet raise
+NotImplementedError naming the flag.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import logging
 import sys
 
 from .config import parse_args_reconstruct
+from .parallel.mesh import distributed
 from .trainers.base import resolve_device
 from .trainers.reconstruct import Reconstruct
 
@@ -33,8 +38,10 @@ def main(argv=None) -> Reconstruct:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
-    recon = Reconstruct(args, resolve_device(args.device))
-    recon.reconstruct(args)
+    device = resolve_device(args.device)
+    with distributed(device):
+        recon = Reconstruct(args, device)
+        recon.reconstruct(args)
     return recon
 
 

@@ -46,12 +46,13 @@ GRID_SAMPLERS = {"plms": (pndm_timesteps, plms_denoise), "ddim": (ddim_timesteps
 
 def main(argv=None) -> Path:
     """Returns the path of the written ``.npy``."""
-    from .trainers.base import BaseTrainer, resolve_device
+    from .trainers.base import BaseTrainer, refuse_multi_process, resolve_device
     from .utils.checkpoint import find_checkpoint, missing_checkpoint_error
 
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args_sample(argv)
+    refuse_multi_process("the sample CLI")
     device = resolve_device(args.device)
     run_dir = Path(args.output_dir) / args.model_name
     epoch = getattr(args, "ddpm_checkpoint_epoch", None)

@@ -38,8 +38,11 @@ first batch of a dataset pass draws.
 
 It takes the flags of the JAX package's ``scripts/serve.py`` plus
 ``--device`` (default cuda, which raises without a card). ``--quantize``
-other than none, ``--aot_cache`` (TPU-only) and more than one process
-(``WORLD_SIZE`` > 1) raise NotImplementedError naming the flag.
+other than none and ``--aot_cache`` (TPU-only) raise NotImplementedError
+naming the flag. The service runs one process: a launch of more than one
+(``WORLD_SIZE`` > 1) raises NotImplementedError, since the JAX service's
+``shard_fn``, which shards a request batch over one process's devices, is
+not ported.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ from .recon.sweep import ReconProgram
 
 log = logging.getLogger(__name__)
 
-NOISE_SEED = 777  # the JAX pipeline's PRNGKey(777 + process_index), one process
+NOISE_SEED = 777  # the JAX pipeline's PRNGKey(777 + process_index), plus the rank
 
 
 def resolve_recon_groups(value, spatial_dimension: int = 2) -> int:
@@ -614,11 +617,12 @@ def build_service(args):
     hook and a warmup sweep; a BatchingScoringService with
     ``--batch_window_ms``. Raises FileNotFoundError without a checkpoint."""
     from .losses.lpips import PerceptualLoss
-    from .trainers.base import BaseTrainer, resolve_device
+    from .trainers.base import BaseTrainer, refuse_multi_process, resolve_device
     from .trainers.reconstruct import refuse_unported_flags  # the scoring CLI's refusals
     from .utils.checkpoint import find_checkpoint, missing_checkpoint_error
 
     refuse_unported_flags(args)
+    refuse_multi_process("the scoring service")
     device = resolve_device(args.device)
     run_dir = Path(args.output_dir) / args.model_name
     epoch = int(args.ddpm_checkpoint_epoch) if args.ddpm_checkpoint_epoch else None

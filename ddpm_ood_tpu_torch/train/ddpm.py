@@ -23,6 +23,14 @@ Parity choices:
     equals the full batch's gradient; one microbatch's activations are live
     at a time.
   - The EMA ``d * e + (1 - d) * p`` is taken after the update.
+
+Data parallel: ``runner`` is the module that runs the training forward, the
+model's ``DistributedDataParallel`` wrapper (whose gradient all-reduce
+averages the processes' mean-loss gradients, the global batch's gradient
+when their batches are equal) or the FSDP2-sharded model itself;
+``sync_grads`` runs after the last backward (FSDP2's replicated parameters).
+With ``grad_accum`` > 1, DDP skips the all-reduce of every microbatch but
+the last (``no_sync``). The EMA and evaluation use ``model``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.schedules import NoiseSchedule, add_noise, training_target
+from ..parallel import fsdp
 
 
 def _effective_accum(k: int, batch: int) -> int:
@@ -77,10 +86,14 @@ class DDPMTrainStep:
     # (B, C, *spatial) images, and the pad of its latents
     encode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     latent_pad: Optional[Tuple[int, ...]] = None
+    # data parallel: the module of the training forward, and the gradient
+    # sync after the last backward
+    runner: Optional[nn.Module] = None
+    sync_grads: Optional[Callable[[], None]] = None
 
     def __post_init__(self):
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.learning_rate,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.runner = self.runner if self.runner is not None else self.model
+        self.optimizer = fsdp.adam(self.model.parameters(), self.learning_rate)
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         if self.ema_decay > 0.0:
             self.ema = {n: p.detach().clone() for n, p in self.model.named_parameters()}
@@ -111,12 +124,14 @@ class DDPMTrainStep:
         return F.pad(x, tuple(-p for p in self.latent_pad)) if self.latent_pad else x
 
     def loss(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """fp32 MSE of the UNet's prediction on add_noise(x0 * b_scale)."""
+        """fp32 MSE of the UNet's prediction on add_noise(x0 * b_scale); the
+        forward runs through ``runner`` when it takes a gradient."""
         x_scaled = x0 * self.b_scale
         x_t = add_noise(self.sched, x_scaled, noise, t)
         target = training_target(self.sched, x_scaled, noise, t)
+        net = self.runner if torch.is_grad_enabled() else self.model
         with self.autocast(x0.device):
-            pred = self.model(channels_last(x_t), t)
+            pred = net(channels_last(x_t), t)
         self.forwards += 1
         return torch.mean(torch.square(pred.float() - target))
 
@@ -126,12 +141,21 @@ class DDPMTrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         k = _effective_accum(self.grad_accum, x0.shape[0])
         total = torch.zeros((), device=x0.device)
-        for x0_i, noise_i, t_i in zip(x0.chunk(k), noise.chunk(k), t.chunk(k)):
-            loss_i = self.loss(x0_i, noise_i, t_i)
-            (loss_i / k).backward()
+        for i, (x0_i, noise_i, t_i) in enumerate(zip(x0.chunk(k), noise.chunk(k), t.chunk(k))):
+            with self._no_sync(i < k - 1):
+                loss_i = self.loss(x0_i, noise_i, t_i)
+                (loss_i / k).backward()
             self.backwards += 1
             total += loss_i.detach()
+        if self.sync_grads is not None:
+            self.sync_grads()
         return total / k
+
+    def _no_sync(self, skip: bool):
+        """DDP's ``no_sync`` for a microbatch whose all-reduce is skipped."""
+        if skip and hasattr(self.runner, "no_sync"):
+            return self.runner.no_sync()
+        return contextlib.nullcontext()
 
     @property
     def updates(self) -> int:

@@ -1,7 +1,7 @@
 """VQ-VAE + PatchGAN training steps: generator, discriminator and eval.
 
 Port of ``ddpm_ood_tpu/train/vqvae.py`` (the reference trainer's per-step
-pipeline) on one device:
+pipeline), on one device or one process per device:
   G: (recon, q_loss) = VQVAE(images); logits_fake = D(recon)[-1] with D in
      eval mode (its running BatchNorm statistics); total = L1 + q_loss +
      0.001 * LPIPS + jukebox + adv_weight * LSGAN(logits_fake);
@@ -10,6 +10,14 @@ pipeline) on one device:
      with D in train mode, so its running statistics are updated twice, in
      that order; loss adv_weight * d_loss; Adam(5e-4).
   adversarial_weight: the linear 50-epoch warm-up.
+
+Data parallel: ``g_runner`` and ``d_runner`` run the forwards that take a
+gradient (the models' ``DistributedDataParallel`` wrappers, or the
+FSDP2-sharded models themselves); ``sync_g`` and ``sync_d`` run after their
+step's last backward (FSDP2's replicated parameters). The G step calls the
+unwrapped D, whose parameters take no gradient there, so D's DDP reducer
+expects no all-reduce from it; the D step runs D's wrapper twice (fake, then
+real) before its one backward.
 
 ``grad_accum`` k > 1 splits the G step's batch into
 ``_effective_accum(k, B)`` equal microbatches: the gradients and the scalar
@@ -28,13 +36,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..losses.gan import discriminator_loss, generator_adversarial_loss
 from ..losses.spectral import jukebox_loss
+from ..parallel import fsdp
 from .ddpm import _effective_accum
 
 SCALAR_TAGS = ("l1_loss", "quantization_loss", "perceptual_loss", "jukebox_loss",
@@ -65,12 +74,18 @@ class VQVAETrainStep:
     grad_accum: int = 1
     # bf16 on CUDA (fp32 params, bf16 convolutions); None computes in fp32
     autocast_dtype: Optional[torch.dtype] = None
+    # data parallel: the modules of the forwards that take a gradient, and
+    # the gradient syncs after each step's last backward
+    g_runner: Optional[nn.Module] = None
+    d_runner: Optional[nn.Module] = None
+    sync_g: Optional[Callable[[], None]] = None
+    sync_d: Optional[Callable[[], None]] = None
 
     def __post_init__(self):
-        self.opt_g = torch.optim.Adam(self.model.parameters(), lr=self.vqvae_lr,
-                                      betas=(0.9, 0.999), eps=1e-8)
-        self.opt_d = torch.optim.Adam(self.discriminator.parameters(), lr=DISC_LR,
-                                      betas=(0.9, 0.999), eps=1e-8)
+        self.g_runner = self.g_runner if self.g_runner is not None else self.model
+        self.d_runner = self.d_runner if self.d_runner is not None else self.discriminator
+        self.opt_g = fsdp.adam(self.model.parameters(), self.vqvae_lr)
+        self.opt_d = fsdp.adam(self.discriminator.parameters(), DISC_LR)
         self.quantizer = self.model.quantizer.quantizer
         self.g_backwards = 0
 
@@ -87,9 +102,11 @@ class VQVAETrainStep:
 
     def _losses(self, images: torch.Tensor, adv_weight: float
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
-        """(total G loss, metrics, fp32 recon) of one (micro)batch."""
+        """(total G loss, metrics, fp32 recon) of one (micro)batch; the
+        VQ-VAE runs through ``g_runner`` when it takes a gradient."""
+        g = self.g_runner if torch.is_grad_enabled() else self.model
         with self.autocast(images.device):
-            recon, q_loss = self.model(images)
+            recon, q_loss = g(images)
             recon = recon.to(torch.promote_types(recon.dtype, torch.float32))
             logits_fake = self.discriminator(recon)[-1]
         l1 = torch.mean(torch.abs(recon - images))
@@ -114,15 +131,19 @@ class VQVAETrainStep:
         recons = []
         self.discriminator.requires_grad_(False)
         try:
-            for images_i in images.chunk(k):
-                total, metrics, recon = self._losses(images_i, adv_weight)
-                (total / k).backward()
+            for i, images_i in enumerate(images.chunk(k)):
+                skip_sync = i < k - 1 and hasattr(self.g_runner, "no_sync")
+                with self.g_runner.no_sync() if skip_sync else contextlib.nullcontext():
+                    total, metrics, recon = self._losses(images_i, adv_weight)
+                    (total / k).backward()
                 self.g_backwards += 1
                 for tag in SCALAR_TAGS:
                     sums[tag] += metrics[tag].detach()
                 recons.append(recon.detach())
         finally:
             self.discriminator.requires_grad_(True)
+        if self.sync_g is not None:
+            self.sync_g()
         self.opt_g.step()
         self.quantizer.ema_update()
         return {tag: v / k for tag, v in sums.items()}, torch.cat(recons)
@@ -134,10 +155,12 @@ class VQVAETrainStep:
         self.discriminator.train()
         self.opt_d.zero_grad(set_to_none=True)
         with self.autocast(images.device):
-            logits_fake = self.discriminator(recon.detach())[-1]
-            logits_real = self.discriminator(images)[-1]
+            logits_fake = self.d_runner(recon.detach())[-1]
+            logits_real = self.d_runner(images)[-1]
         d_loss = discriminator_loss(logits_fake, logits_real)
         (adv_weight * d_loss).backward()
+        if self.sync_d is not None:
+            self.sync_d()
         self.opt_d.step()
         return d_loss.detach()
 

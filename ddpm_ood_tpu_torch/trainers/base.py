@@ -1,6 +1,6 @@
 """BaseTrainer: model, schedule, checkpoint and training-state wiring.
 
-Port of ``ddpm_ood_tpu/trainers/base.py`` for one process on one device:
+Port of ``ddpm_ood_tpu/trainers/base.py``:
 the UNet preset (2D or 3D), the frozen VQ-VAE of a latent diffusion model
 (``--vqvae_checkpoint``, a ``.pth`` with ``vqvae_config.json`` beside it;
 the UNet then works on ``embedding_dim`` channels; none in pixel space), the
@@ -12,7 +12,17 @@ slot, ``start_epoch``, ``global_step`` (counted in images, as the
 reference), ``best_loss`` (1000.0 on a fresh run), resume from the
 checkpoint ``find_checkpoint`` picks, and ``save_checkpoint`` in the
 reference schema; ``reload_params`` re-reads a checkpoint into the model in
-place (the serving hot reload). There is no mesh and no FSDP.
+place (the serving hot reload).
+
+Under torchrun (``parallel/mesh.py``) a process takes ``cuda:LOCAL_RANK``;
+the CLI joins the process group, and the trainer reads its size and this
+process's rank. Training wraps the UNet in
+``DistributedDataParallel`` when there is more than one process, or shards
+it with FSDP2 under ``--fsdp=1`` (``parallel/fsdp.py``). ``self.unet`` stays
+the unwrapped module, which the EMA, ``reload_params`` and checkpoints use.
+Rank 0 writes a checkpoint (every rank gathers its shards first under
+FSDP2), and every rank waits for the file before it goes on, so all resume
+from rank 0's file.
 
 Precision: on CUDA the UNet and the VQ-VAE compute in bf16
 (``torch.autocast``) with their parameters in fp32 and GroupNorm statistics
@@ -34,6 +44,8 @@ import torch
 from ..diffusion.schedules import make_schedule
 from ..models.unet import jax_like_init_, make_unet, memory_format
 from ..models.vqvae import VQVAE
+from ..parallel import fsdp
+from ..parallel import mesh as pmesh
 from ..train.ddpm import DDPMTrainStep
 from ..utils import checkpoint as ckpt
 from ..utils.convert import jax_unet_params_to_state_dict, load_params_npz
@@ -43,14 +55,16 @@ log = logging.getLogger(__name__)
 
 
 def resolve_device(name: str) -> torch.device:
-    """A torch.device for `name`; asking for CUDA without a card raises."""
+    """A torch.device for `name`: ``cuda`` is this process's card
+    (``cuda:LOCAL_RANK`` under torchrun). Asking for CUDA without a card
+    raises."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"--device={name} but torch.cuda.is_available() is false; "
                                "pass --device=cpu to run the plain PyTorch path on the CPU")
         if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+            device = torch.device("cuda", pmesh.local_device_index())
     elif device.type != "cpu":
         raise ValueError(f"unsupported --device={name} (cuda or cpu)")
     return device
@@ -58,16 +72,22 @@ def resolve_device(name: str) -> torch.device:
 
 def refuse_flags(args, refused: Sequence[Tuple[str, bool, str]]) -> None:
     """Raise NotImplementedError naming the first (flag, is_set, why) that is
-    set, or a multi-process launch: the port runs one process."""
+    set."""
     for name, on, why in refused:
         if on:
             raise NotImplementedError(
                 f"{name}={getattr(args, name[2:], None)} is not ported to ddpm_ood_tpu_torch"
                 + (f" ({why})" if why else ""))
+
+
+def refuse_multi_process(what: str) -> None:
+    """Raise NotImplementedError under a launch of more than one process:
+    `what` runs one process (training and scoring run under torchrun)."""
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     if world > 1:
         raise NotImplementedError(
-            f"more than one process (WORLD_SIZE={world}) is not ported: run one process")
+            f"more than one process (WORLD_SIZE={world}) is not ported to {what}: run one "
+            "process")
 
 
 class BaseTrainer:
@@ -77,6 +97,8 @@ class BaseTrainer:
         (``utils.convert.load_params_npz``) to start from, in place of
         ``jax_like_init_``'s draw from ``--seed``."""
         log.info(f"Arguments: {args}")
+        self.fsdp = training and bool(getattr(args, "fsdp", 0))
+        pmesh.check_joined()
         self.device = device
         self.spatial_dimension = int(args.spatial_dimension)
         self.image_size = int(args.image_size) if args.image_size else None
@@ -130,7 +152,11 @@ class BaseTrainer:
                 log.info(f"Initial weights from {init_weights}")
             else:
                 jax_like_init_(self.unet, torch.Generator().manual_seed(int(args.seed)))
+            payload = ckpt.load_checkpoint(path) if path is not None else None
+            if payload is not None:
+                self.unet.load_state_dict(payload["model_state_dict"], strict=True)
             self.unet = self.unet.to(device, memory_format=memory_format(self.spatial_dimension))
+            runner, sync_grads = self._wrap(device)
             self.step = DDPMTrainStep(
                 model=self.unet, sched=self.sched, b_scale=self.b_scale,
                 learning_rate=float(args.learning_rate),
@@ -140,10 +166,15 @@ class BaseTrainer:
                 autocast_dtype=self.autocast_dtype,
                 encode_fn=self.vqvae.encode_stage_2_inputs if self.vqvae is not None else None,
                 latent_pad=self.latent_pad,
+                runner=runner, sync_grads=sync_grads,
             )
             self.start_epoch, self.global_step, self.best_loss = 0, 0, 1000.0
-            if path is not None:
-                self._resume(path)
+            if payload is not None:
+                self._resume(path, payload)
+            if self.fsdp:
+                log.info(f"FSDP: params + optimizer state sharded {pmesh.process_count()}-way "
+                         f"({fsdp.sharded_bytes_per_device(self.unet.parameters()) / 2**20:.1f} "
+                         "MiB params/device)")
         else:
             if path is not None:
                 self._load(path)
@@ -180,16 +211,26 @@ class BaseTrainer:
         log.info(f"Hot-reloaded weights from {path} (epoch {self.start_epoch})")
         return path
 
-    def _resume(self, path: Path) -> None:
-        """Model, Adam, EMA, epoch, step count and best loss from `path`. A
-        checkpoint without an EMA slot seeds the EMA from its weights."""
-        payload = ckpt.load_checkpoint(path)
-        self.unet.load_state_dict(payload["model_state_dict"], strict=True)
-        self.step.optimizer.load_state_dict(payload["optimizer_state_dict"])
+    def _wrap(self, device: torch.device):
+        """(the module that runs the training forward, the gradient sync
+        after the backward): FSDP2 under ``--fsdp=1``, DDP for more than one
+        process, else the UNet itself."""
+        if self.fsdp:
+            replicated = fsdp.apply_fsdp(self.unet, fsdp.min_size_from_env())
+            return self.unet, lambda: fsdp.sync_replicated_grads(replicated)
+        if pmesh.process_count() > 1:
+            return pmesh.wrap_ddp(self.unet, device), None
+        return self.unet, None
+
+    def _resume(self, path: Path, payload: dict) -> None:
+        """Adam, EMA, epoch, step count and best loss from `path`'s payload
+        (the model's weights are loaded before it is wrapped). A checkpoint
+        without an EMA slot seeds the EMA from its weights."""
+        fsdp.load_optimizer_state(self.step.optimizer, payload["optimizer_state_dict"])
         if self.step.ema is not None:
             ema = payload.get("ema_model_state_dict", payload["model_state_dict"])
             for name, t in self.step.ema.items():
-                t.copy_(ema[name])
+                fsdp.load_full_(t, ema[name])
         self.start_epoch = int(payload["epoch"])
         self.global_step = int(payload["global_step"])
         self.best_loss = float(payload["best_loss"])
@@ -197,19 +238,24 @@ class BaseTrainer:
 
     def save_checkpoint(self, name: str, epoch: int, save_message: Optional[str] = None) -> Path:
         """``<run>/<name>.pth`` in the reference schema; epoch + 1, so a resume
-        starts on the next epoch."""
+        starts on the next epoch. Every process calls it: shards are gathered
+        on all, rank 0 writes, and all wait until the file is there."""
         if save_message:
             log.info(save_message)
         payload = {
             "epoch": int(epoch) + 1,
             "global_step": int(self.global_step),
-            "model_state_dict": self.unet.state_dict(),
-            "optimizer_state_dict": self.step.optimizer.state_dict(),
+            "model_state_dict": fsdp.full_state_dict(self.unet.state_dict()),
+            "optimizer_state_dict": fsdp.full_optimizer_state(self.step.optimizer.state_dict()),
             "best_loss": float(self.best_loss),
         }
         if self.step.ema is not None:
-            payload["ema_model_state_dict"] = dict(self.step.ema)
-        return ckpt.write_checkpoint(self.run_dir / f"{name}.pth", payload)
+            payload["ema_model_state_dict"] = fsdp.full_state_dict(self.step.ema)
+        target = self.run_dir / f"{name}.pth"
+        if pmesh.process_index() == 0:
+            ckpt.write_checkpoint(target, payload)
+        pmesh.coordination_barrier(f"checkpoint {name}")
+        return target
 
     def _latent_sample_shape(self) -> Tuple[int, ...]:
         """(*spatial, C) of the tensor the UNet consumes: the image size, over

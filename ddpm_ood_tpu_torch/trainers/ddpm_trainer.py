@@ -2,7 +2,8 @@
 
 Port of ``ddpm_ood_tpu/trainers/ddpm_trainer.py`` for 2D and 3D models, in
 pixel space or on the latents of a frozen VQ-VAE (``--vqvae_checkpoint``,
-``--latent_pad``), on one device:
+``--latent_pad``), on one device or one process per device under torchrun
+(``parallel/mesh.py``; ``--fsdp=1`` shards the UNet with FSDP2):
   - the epoch loop keeps the reference's policy: the rolling ``checkpoint``
     is the best on TRAIN loss, ``checkpoint_{N}`` is written every
     ``--checkpoint_every`` epochs, validation runs every ``--eval_freq``;
@@ -12,7 +13,12 @@ pixel space or on the latents of a frozen VQ-VAE (``--vqvae_checkpoint``,
     global RNG and OpenSimplex planes, ``_simplex_batch``, as the JAX
     trainer draws them, in training and validation alike), then
     ``DDPMTrainStep.step`` (noising, MSE on the prediction type's target,
-    backward, Adam, EMA); ``global_step`` counts images;
+    backward, Adam, EMA); ``global_step`` counts this process's images, as
+    the JAX trainer's does;
+  - under torchrun each process trains on its partition of the data with
+    its own noise stream (``NOISE_SEED + rank``); the logged train and
+    validation losses are means over all processes, as the JAX package's
+    global-batch step gives them, and the sample grid is rank 0's;
   - ``--remat=1`` recomputes the UNet's res and attention blocks in the
     backward pass; ``--profile_dir`` writes a ``torch.profiler`` trace of
     warm steps 2-4 of the first epoch;
@@ -39,26 +45,21 @@ from ..data.loader import get_training_data_loader
 from ..diffusion.ddpm import ddpm_sample
 from ..noise import _native
 from ..noise.simplex import Simplex, generate_simplex_noise
+from ..parallel import mesh as pmesh
 from ..train.ddpm import channels_last
 from ..utils.logging import Logger
 from ..utils.preemption import PreemptionGuard, checkpoint_if_preempted
 from ..utils.profiling import start_trace, stop_trace
-from .base import BaseTrainer, refuse_flags
+from .base import BaseTrainer
 
 log = logging.getLogger(__name__)
 
-NOISE_SEED = 1234  # the JAX trainer's PRNGKey(1234 + process_index), one process
+NOISE_SEED = 1234  # the JAX trainer's PRNGKey(1234 + process_index), plus the rank
 LOSS_CHUNK = 32  # device losses read per host sync
-
-
-def refuse_unported_train_flags(args) -> None:
-    """Raise NotImplementedError naming the first flag this slice does not serve."""
-    refuse_flags(args, [("--fsdp", bool(args.fsdp), "one device")])
 
 
 class DDPMTrainer(BaseTrainer):
     def __init__(self, args, device: torch.device, init_weights=None):
-        refuse_unported_train_flags(args)
         grad_accum = int(args.grad_accum_steps or 1)
         if grad_accum > 1 and args.batch_size % grad_accum != 0:
             raise ValueError(f"--batch_size {args.batch_size} is not divisible by "
@@ -67,8 +68,9 @@ class DDPMTrainer(BaseTrainer):
         if self.simplex_noise:
             _native.library()  # before the model: no g++ is an error
         super().__init__(args, device, training=True, init_weights=init_weights)
-        self.logger_train = Logger(self.run_dir / "train")
-        self.logger_val = Logger(self.run_dir / "val")
+        self.rank = pmesh.process_index()
+        self.logger_train = Logger(self.run_dir / "train", enabled=self.rank == 0)
+        self.logger_val = Logger(self.run_dir / "val", enabled=self.rank == 0)
         self.train_loader, self.val_loader = get_training_data_loader(
             batch_size=args.batch_size,
             training_ids=args.training_ids,
@@ -80,10 +82,12 @@ class DDPMTrainer(BaseTrainer):
             image_size=self.image_size,
             image_roi=self.image_roi,
             spatial_dimension=self.spatial_dimension,
+            num_processes=pmesh.process_count(),
+            process_index=pmesh.process_index(),
         )
         if self.simplex_noise:
             self.simplex = Simplex()  # a draw from numpy's global RNG, as the JAX trainer's
-        self.generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
+        self.generator = torch.Generator(device=device).manual_seed(NOISE_SEED + self.rank)
         self.profile_dir = getattr(args, "profile_dir", None)
         self.profile_path = None  # the trace, once written
         self.quick_test = bool(args.quick_test)
@@ -143,7 +147,8 @@ class DDPMTrainer(BaseTrainer):
             nonlocal epoch_loss
             if not pending:
                 return
-            values = torch.stack([loss for _, _, loss in pending]).tolist()  # one sync
+            # one sync: the means over processes
+            values = pmesh.all_reduce_mean(torch.stack([loss for _, _, loss in pending])).tolist()
             for (gstep, bsz, _), val in zip(pending, values):
                 epoch_loss += val * bsz
                 self.logger_train.add_scalar("loss", val, gstep)
@@ -151,7 +156,7 @@ class DDPMTrainer(BaseTrainer):
 
         profiler = None
         for i, batch in enumerate(self.train_loader):
-            if self.profile_dir and epoch == self.start_epoch and i == 2:
+            if self.profile_dir and epoch == self.start_epoch and i == 2 and self.rank == 0:
                 profiler = start_trace(self.device)  # warm steps 2-4
             x0 = self.step.prepare(self._to_device(batch["image"]))
             t, noise = self._draw(x0)
@@ -193,9 +198,14 @@ class DDPMTrainer(BaseTrainer):
             last_batch = x0
             if self.quick_test:
                 break
+        # the mean over every process's images
+        total, count = pmesh.all_reduce_sum_(
+            torch.tensor([total, count], dtype=torch.float64, device=self.device)).tolist()
         log.info(f"Epoch {epoch}: val loss {total / max(count, 1):.6f}")
         self.logger_val.add_scalar("loss", total / max(count, 1), self.global_step)
-        if last_batch is not None:
+        # rank 0's grid; under FSDP2 every rank samples, since each forward
+        # gathers the shards from all
+        if last_batch is not None and (self.rank == 0 or self.fsdp):
             self.sample_grid(last_batch)
         self.logger_val.flush()
 
@@ -204,7 +214,7 @@ class DDPMTrainer(BaseTrainer):
         """Ancestral samples shaped like x0's items (2 in 3D, else up to 8),
         un-padded and decoded by a latent model's VQ-VAE, /b_scale and
         clipped to [0, 1], saved as (num, *spatial, C) float32 beside the
-        val scalars."""
+        val scalars (by rank 0)."""
         num = 2 if self.spatial_dimension == 3 else min(8, x0.shape[0])
         noise = channels_last(torch.randn((num,) + tuple(x0.shape[1:]),
                                           generator=self.generator, device=self.device))
@@ -219,5 +229,6 @@ class DDPMTrainer(BaseTrainer):
                 samples = self.vqvae.decode_stage_2_outputs(channels_last(samples))
         grid = np.clip(np.moveaxis((samples / self.b_scale).float().cpu().numpy(), 1, -1), 0, 1)
         path = self.logger_val.add_figure("samples", grid, self.global_step)
-        log.info(f"Wrote the sample grid {path}")
+        if path is not None:
+            log.info(f"Wrote the sample grid {path}")
         return grid

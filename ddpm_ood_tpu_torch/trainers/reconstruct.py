@@ -1,4 +1,5 @@
-"""Reconstruction pipeline: the OOD scoring workload on one device.
+"""Reconstruction pipeline: the OOD scoring workload, on one device or one
+process per device under torchrun.
 
 Port of ``ddpm_ood_tpu/trainers/reconstruct.py``: 2D and 3D models in pixel
 space or in the latent space of a frozen VQ-VAE (``--vqvae_checkpoint``,
@@ -32,6 +33,15 @@ scoring generator. Every scored batch is appended to a partial CSV at once;
 takes no gradient. ``DDPM_OOD_TPU_CRASH_AFTER_BATCHES=N`` SIGKILLs the
 process after N batches are persisted, to test the resume.
 
+Under torchrun (``parallel/mesh.py``) each process scores its partition of
+every dataset (``partition_for_process``: equal partitions, wrap-padded) with
+its own noise stream (``NOISE_SEED + rank``), appends to its own partial CSV
+``.results_<name>.shard<rank>.partial.csv`` (which ``--resume=1`` reloads),
+finishes it as ``.results_<name>.shard<rank>.csv``, and after a barrier rank 0
+merges the shards, in rank order, into ``results_<name>.csv``, as the JAX
+package's ``_CsvSink.finalize`` does. Previews and the profiler trace are
+rank 0's; the latent path runs on each process unchanged.
+
 The scoring program is assembled by ``serve.build_recon_program``, the
 one place the online service assembles its own, so that offline scoring and
 serving cannot diverge; ``resolve_recon_groups`` and the generator's
@@ -58,6 +68,7 @@ from ..data.transforms import TransformChain
 from ..losses.lpips import PerceptualLoss
 from ..noise import _native
 from ..noise.simplex import Simplex, generate_simplex_noise, simplex_noise_device
+from ..parallel import mesh as pmesh
 from ..recon.sweep import ReconProgram
 from ..serve import NOISE_SEED, build_recon_program
 from ..serve import resolve_recon_groups  # noqa: F401 (its callers import it from here)
@@ -96,11 +107,18 @@ class _CsvSink:
     point, a torn or non-finite row is dropped so that its image is rescored,
     ``finalize()`` keeps the last row of each (filename, type, t), and a
     partial that cannot be read (or holds other columns) is removed and the
-    pass starts afresh. Without ``resume`` a stale partial is removed."""
+    pass starts afresh. Without ``resume`` a stale partial is removed.
+
+    Under torchrun every process keeps its own partial (``.shard<rank>``
+    before ``.partial.csv``); ``finalize()``, which every process calls,
+    writes its shard, rank 0 merges them, and every process returns once
+    the merged file is there."""
 
     def __init__(self, out_dir: Path, name: str, columns=COLUMNS, resume: bool = False):
         self.out_dir, self.name, self.columns = Path(out_dir), name, tuple(columns)
-        self.partial = self.out_dir / f".results_{name}.partial.csv"
+        self.rank, self.world = pmesh.process_index(), pmesh.process_count()
+        self.suffix = f".shard{self.rank}" if self.world > 1 else ""
+        self.partial = self.out_dir / f".results_{name}{self.suffix}.partial.csv"
         self.rows: List[dict] = []
         self._fh = None
         self._counts: Counter = Counter()  # stem -> rows persisted
@@ -172,14 +190,32 @@ class _CsvSink:
         last = {(r["filename"], r["type"], r["t"]): i for i, r in enumerate(self.rows)}
         rows = [r for i, r in enumerate(self.rows) if last[(r["filename"], r["type"], r["t"])] == i]
         final = self.out_dir / f"results_{self.name}.csv"
-        tmp = final.with_name(f".{final.name}.tmp")
+        if self.world == 1:
+            self._write_csv(final, [[r[c] for c in self.columns] for r in rows])
+            self.partial.unlink(missing_ok=True)
+            return final
+        self._write_csv(self.out_dir / f".results_{self.name}{self.suffix}.csv",
+                        [[r[c] for c in self.columns] for r in rows])
+        pmesh.coordination_barrier(f"recon_write_{self.name}")
+        if self.rank == 0:
+            merged = []
+            for r in range(self.world):
+                with open(self.out_dir / f".results_{self.name}.shard{r}.csv", newline="") as fh:
+                    merged.extend(rec[1:] for rec in list(csv.reader(fh))[1:])
+            self._write_csv(final, merged)
+        self.partial.unlink(missing_ok=True)
+        pmesh.coordination_barrier(f"recon_merged_{self.name}")  # every rank sees it
+        return final
+
+    def _write_csv(self, path: Path, records) -> None:
+        """`records` (lists in column order) as a CSV in the JAX package's
+        format, written to a temporary name and renamed."""
+        tmp = path.with_name(f".{path.name}.tmp")
         with open(tmp, "w", newline="") as fh:
             w = csv.writer(fh, lineterminator="\n")
             w.writerow(("",) + self.columns)  # pandas' unnamed index column
-            w.writerows((i,) + tuple(r[c] for c in self.columns) for i, r in enumerate(rows))
-        os.replace(tmp, final)
-        self.partial.unlink(missing_ok=True)
-        return final
+            w.writerows([i, *rec] for i, rec in enumerate(records))
+        os.replace(tmp, path)
 
 
 class Reconstruct(BaseTrainer):
@@ -231,7 +267,9 @@ class Reconstruct(BaseTrainer):
         )
         return DataLoader(ids, a.batch_size, transform, first_n=int(first_n) if first_n else None,
                           drop_last=bool(getattr(a, "drop_last", 0)),
-                          num_workers=int(getattr(a, "num_workers", 1) or 1))
+                          num_workers=int(getattr(a, "num_workers", 1) or 1),
+                          num_processes=pmesh.process_count(),
+                          process_index=pmesh.process_index())
 
     def _program(self, skip_factor: int) -> ReconProgram:
         if skip_factor not in self._programs:
@@ -272,7 +310,8 @@ class Reconstruct(BaseTrainer):
         interrupted run, the batches they cover whole are skipped."""
         log.info(dataset_name)
         program = self._program(inference_skip_factor)
-        generator = torch.Generator(device=self.device).manual_seed(NOISE_SEED)
+        rank = pmesh.process_index()
+        generator = torch.Generator(device=self.device).manual_seed(NOISE_SEED + rank)
         crash_after = int(os.environ.get(CRASH_ENV) or 0)
         names = ("mse", "perceptual_difference") + self.columns[len(COLUMNS):]
         results: List[dict] = []
@@ -285,7 +324,7 @@ class Reconstruct(BaseTrainer):
                 n_skipped += len(images)
                 continue
             profiler = None
-            if self.profile_dir and batch_idx == 1 and self.profile_path is None:
+            if self.profile_dir and batch_idx == 1 and self.profile_path is None and rank == 0:
                 profiler = start_trace(self.device)  # a warm batch: batch 0 pays the set-up
             t1 = time.perf_counter()
             first_b = first_b or len(images)
@@ -314,7 +353,7 @@ class Reconstruct(BaseTrainer):
             self.batch_times.append((n, secs))
             log.info(f"Took {secs:.2f}s for a batch size of {images.shape[0]} "
                      f"({n / secs:.1f} recons/s)")
-            if not preview_saved:
+            if not preview_saved and rank == 0:
                 # one name per get_scores call: every out dataset is "out"
                 self._previews += 1
                 tag = (dataset_name if dataset_name in ("val", "in")

@@ -1,6 +1,7 @@
 """VQ-VAE + PatchGAN trainer: stage 1 of latent diffusion.
 
-Port of ``ddpm_ood_tpu/trainers/vqvae_trainer.py`` on one device:
+Port of ``ddpm_ood_tpu/trainers/vqvae_trainer.py``, on one device or one
+process per device under torchrun (``parallel/mesh.py``):
   - the VQ-VAE from the ``--vqvae_*`` flags and a PatchGAN discriminator
     (3 layers, 64 base channels), both initialised with Flax's default
     distributions drawn from ``--seed`` (the codebook a unit normal);
@@ -20,6 +21,12 @@ Port of ``ddpm_ood_tpu/trainers/vqvae_trainer.py`` on one device:
     and LDM training CLIs read), ``discriminator_state_dict``, both Adam
     states, ``epoch``, ``global_step`` and ``best_loss``, written
     atomically; a rerun resumes from them;
+  - under torchrun each process trains on its partition of the data; G and
+    D are wrapped in ``DistributedDataParallel``, or sharded by FSDP2 under
+    ``--fsdp=1`` (``parallel/fsdp.py``); the codebook statistics and D's
+    BatchNorm statistics are the global batch's (``models/vqvae.py``,
+    ``models/discriminator.py``); rank 0 logs the metrics' means over the
+    processes and writes the checkpoints;
   - validation logs the mean metrics and saves the last batch's
     reconstructions as ``val/RECONSTRUCTIONS_<step>.npy``: (n, 2, *spatial,
     C) image / reconstruction pairs of up to 4 items in [0, 1], the middle
@@ -45,6 +52,8 @@ from ..losses.lpips import PerceptualLoss
 from ..models.discriminator import PatchDiscriminator, init_like_flax_
 from ..models.unet import memory_format
 from ..models.vqvae import VQVAE
+from ..parallel import fsdp
+from ..parallel import mesh as pmesh
 from ..train.ddpm import channels_last
 from ..train.vqvae import SCALAR_TAGS, VQVAETrainStep, adversarial_weight
 from ..utils import checkpoint as ckpt
@@ -59,7 +68,6 @@ LOSS_CHUNK = 16  # steps of device metrics read per host sync
 
 def refuse_unported_vqvae_flags(args) -> None:
     refuse_flags(args, [
-        ("--fsdp", bool(args.fsdp), "one device"),
         ("--vqvae_dropout", float(args.vqvae_dropout) > 0.0,
          "the training step draws no dropout mask, as the JAX package's"),
     ])
@@ -122,6 +130,15 @@ class VQVAETrainer:
                 torch.randn(quantizer.embedding.weight.shape, generator=gen))
             quantizer.ema_w.copy_(quantizer.embedding.weight)
             init_like_flax_(self.discriminator, gen)
+        self.fsdp = bool(args.fsdp)
+        pmesh.check_joined()
+        self.rank = pmesh.process_index()
+        self.run_dir = Path(args.output_dir) / args.model_name
+        path = ckpt.find_checkpoint(self.run_dir)
+        payload = ckpt.load_checkpoint(path) if path is not None else None
+        if payload is not None:
+            self.model.load_state_dict(payload["model_state_dict"], strict=True)
+            self.discriminator.load_state_dict(payload["discriminator_state_dict"], strict=True)
         fmt = memory_format(self.spatial_dimension)
         self.model = self.model.to(device, memory_format=fmt)
         self.discriminator = self.discriminator.to(device, memory_format=fmt)
@@ -130,10 +147,9 @@ class VQVAETrainer:
 
         self.adv_weight = float(args.adversarial_weight)
         self.adversarial_warmup = bool(int(args.adversarial_warmup))
-        self.run_dir = Path(args.output_dir) / args.model_name
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        self.logger_train = Logger(self.run_dir / "train")
-        self.logger_val = Logger(self.run_dir / "val")
+        self.logger_train = Logger(self.run_dir / "train", enabled=self.rank == 0)
+        self.logger_val = Logger(self.run_dir / "val", enabled=self.rank == 0)
         self.quick_test = bool(args.quick_test)
         self.train_loader, self.val_loader = get_training_data_loader(
             batch_size=args.batch_size,
@@ -146,6 +162,8 @@ class VQVAETrainer:
             image_size=self.image_size,
             image_roi=self.image_roi,
             spatial_dimension=self.spatial_dimension,
+            num_processes=pmesh.process_count(),
+            process_index=self.rank,
         )
 
         grad_accum = int(args.grad_accum_steps or 1)
@@ -157,21 +175,37 @@ class VQVAETrainer:
             spatial_dims=self.spatial_dimension,
             perceptual=PerceptualLoss(spatial_dims=self.spatial_dimension).to(device),
             vqvae_lr=float(args.vqvae_learning_rate), grad_accum=grad_accum,
-            autocast_dtype=self.autocast_dtype)
+            autocast_dtype=self.autocast_dtype, **self._wrap(device))
+        if self.fsdp:
+            log.info(f"FSDP: G/D params + optimizer state sharded {pmesh.process_count()}-way "
+                     f"({fsdp.sharded_bytes_per_device(self.model.parameters()) / 2**20:.1f} "
+                     "MiB G params/device)")
         self.epoch_times: List[Tuple[int, float]] = []  # (images, seconds) per train epoch
 
-        ckpt.write_vqvae_config(self.run_dir, self.vqvae_config)
+        if self.rank == 0:
+            ckpt.write_vqvae_config(self.run_dir, self.vqvae_config)
         self.start_epoch, self.global_step, self.best_loss = 0, 0, 1000.0
-        path = ckpt.find_checkpoint(self.run_dir)
-        if path is not None:
-            self._resume(path)
+        if payload is not None:
+            self._resume(path, payload)
 
-    def _resume(self, path: Path) -> None:
-        payload = ckpt.load_checkpoint(path)
-        self.model.load_state_dict(payload["model_state_dict"], strict=True)
-        self.discriminator.load_state_dict(payload["discriminator_state_dict"], strict=True)
-        self.step.opt_g.load_state_dict(payload["optimizer_g_state_dict"])
-        self.step.opt_d.load_state_dict(payload["optimizer_d_state_dict"])
+    def _wrap(self, device: torch.device) -> dict:
+        """VQVAETrainStep's runners and gradient syncs: FSDP2 under
+        ``--fsdp=1``, DDP for more than one process, else none."""
+        if self.fsdp:
+            rep_g = fsdp.apply_fsdp(self.model, fsdp.min_size_from_env())
+            rep_d = fsdp.apply_fsdp(self.discriminator, fsdp.min_size_from_env())
+            return {"sync_g": lambda: fsdp.sync_replicated_grads(rep_g),
+                    "sync_d": lambda: fsdp.sync_replicated_grads(rep_d)}
+        if pmesh.process_count() > 1:
+            return {name: pmesh.wrap_ddp(m, device)
+                    for name, m in (("g_runner", self.model), ("d_runner", self.discriminator))}
+        return {}
+
+    def _resume(self, path: Path, payload: dict) -> None:
+        """Both Adam states, epoch, step count and best loss from `path`'s
+        payload (the models' weights are loaded before they are wrapped)."""
+        fsdp.load_optimizer_state(self.step.opt_g, payload["optimizer_g_state_dict"])
+        fsdp.load_optimizer_state(self.step.opt_d, payload["optimizer_d_state_dict"])
         self.start_epoch = int(payload["epoch"])
         self.global_step = int(payload["global_step"])
         self.best_loss = float(payload["best_loss"])
@@ -179,20 +213,24 @@ class VQVAETrainer:
 
     def save_checkpoint(self, name: str, epoch: int, save_message: Optional[str] = None) -> Path:
         """``<run>/<name>.pth``; epoch + 1, so a resume starts on the next
-        epoch."""
+        epoch. Every process calls it: shards are gathered on all, rank 0
+        writes, and all wait until the file is there."""
         if save_message:
             log.info(save_message)
         payload = {
             "epoch": int(epoch) + 1,
             "global_step": int(self.global_step),
             "best_loss": float(self.best_loss),
-            "model_state_dict": self.model.state_dict(),
-            "discriminator_state_dict": self.discriminator.state_dict(),
-            "optimizer_g_state_dict": self.step.opt_g.state_dict(),
-            "optimizer_d_state_dict": self.step.opt_d.state_dict(),
+            "model_state_dict": fsdp.full_state_dict(self.model.state_dict()),
+            "discriminator_state_dict": fsdp.full_state_dict(self.discriminator.state_dict()),
+            "optimizer_g_state_dict": fsdp.full_optimizer_state(self.step.opt_g.state_dict()),
+            "optimizer_d_state_dict": fsdp.full_optimizer_state(self.step.opt_d.state_dict()),
         }
-        return ckpt.save_vqvae_checkpoint(self.run_dir / f"{name}.pth", self.vqvae_config,
-                                          payload)
+        target = self.run_dir / f"{name}.pth"
+        if self.rank == 0:
+            ckpt.save_vqvae_checkpoint(target, self.vqvae_config, payload)
+        pmesh.coordination_barrier(f"checkpoint {name}")
+        return target
 
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
         return channels_last(torch.from_numpy(images).to(self.device, non_blocking=True))
@@ -231,8 +269,8 @@ class VQVAETrainer:
             if not pending:
                 return
             tags = SCALAR_TAGS + ("discriminator_loss",)
-            values = torch.stack([torch.stack([m[t] for t in tags])
-                                  for _, _, m in pending]).tolist()  # one sync
+            values = pmesh.all_reduce_mean(torch.stack([  # one sync: the process means
+                torch.stack([m[t] for t in tags]) for _, _, m in pending])).tolist()
             for (gstep, bsz, _), row in zip(pending, values):
                 for tag, value in zip(tags, row):
                     self.logger_train.add_scalar(tag, value, gstep)
@@ -277,10 +315,14 @@ class VQVAETrainer:
             last = (images, recon)
             if self.quick_test:
                 break
+        # the means over every process's images
+        *totals, count = pmesh.all_reduce_sum_(torch.tensor(
+            [*sums.values(), count], dtype=torch.float64, device=self.device)).tolist()
+        sums = dict(zip(sums, totals))
         for tag, total in sums.items():
             self.logger_val.add_scalar(tag, total / max(count, 1), self.global_step)
         log.info(f"Epoch {epoch}: val G loss {sums['generator_loss'] / max(count, 1):.5f}")
-        if last is not None:
+        if last is not None and self.rank == 0:
             path = self.logger_val.add_figure("RECONSTRUCTIONS", self._recon_grid(*last),
                                               self.global_step)
             log.info(f"Wrote the reconstructions {path}")

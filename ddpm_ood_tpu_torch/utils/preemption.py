@@ -6,6 +6,8 @@ finishes the current epoch, writes the periodic checkpoint
 Rerunning the same command resumes: discovery takes the rolling best
 ``checkpoint`` first, as the reference does; resume at the preemption point
 with ``--ddpm_checkpoint_epoch=<epoch+1>`` (the number is in the log line).
+Under torchrun a stop asked of any process stops them all after the same
+epoch, since the checkpoint is written by all of them together.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ class PreemptionGuard:
 def checkpoint_if_preempted(guard: PreemptionGuard, trainer, epoch: int, args) -> bool:
     """On a requested stop, write the periodic checkpoint (unless this epoch's
     periodic save just wrote it) and return True so the epoch loop breaks."""
-    if not guard.requested:
+    from ..parallel.mesh import any_process
+
+    if not any_process(guard.requested, trainer.device):
         return False
     if (epoch + 1) % args.checkpoint_every != 0:
         trainer.save_checkpoint(f"checkpoint_{epoch + 1}", epoch,

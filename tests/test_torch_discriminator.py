@@ -146,7 +146,7 @@ def test_train_mode_gradients_match_jax(pair):
                              jnp.asarray(real), True, mutable=["batch_stats"])
         return jax_discriminator_loss(lf[-1], lr[-1])
 
-    want_loss, (g_params, g_x) = jax.value_and_grad(loss_fn, argnums=(0, 1))(
+    want_loss, (g_params, g_x) = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(
         params, jnp.asarray(fake))
     model = port_disc(dims, params, stats).train()
     x = to_port(fake).clone().requires_grad_()
@@ -187,7 +187,8 @@ def test_flax_like_init():
     """lecun-normal kernels (std sqrt(1 / fan_in), truncated at 2 std), zero
     biases, BatchNorm scale 1 and offset 0, as JAX's init draws them."""
     jmodel = JaxDisc(spatial_dims=2, num_layers_d=3, num_channels=64, in_channels=1)
-    want = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 1)), False)["params"]
+    want = jax.jit(lambda r: jmodel.init(r, jnp.zeros((1, 32, 32, 1)), False)["params"])(
+        jax.random.PRNGKey(0))
     model = init_like_flax_(PatchDiscriminator(spatial_dims=2, num_channels=64),
                             torch.Generator().manual_seed(0))
     for name in ("layer_1", "layer_2"):

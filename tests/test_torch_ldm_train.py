@@ -270,9 +270,7 @@ def test_reconstruct_and_ood_detection_on_the_trained_pair(chain, monkeypatch, c
 
 
 def test_train_vqvae_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="--fsdp"):
-        train_vqvae.main(["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m",
-                          "--fsdp=1"])
+    """--fsdp=1 is served (tests/test_torch_fsdp.py); dropout is not."""
     with pytest.raises(NotImplementedError, match="--vqvae_dropout"):
         train_vqvae.main(["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m",
                           "--vqvae_dropout=0.1"])

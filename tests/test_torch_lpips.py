@@ -77,7 +77,7 @@ def test_alexnet_taps_match_jax(jax_params, port, channels):
 @pytest.mark.parametrize("shape", [(3, 32, 32, 3), (3, 32, 32, 1), (2, 40, 36, 3)])
 def test_lpips_distances_match_jax(jax_params, port, shape):
     x, y = _pair(shape, seed=sum(shape))
-    want = jl.LPIPS().apply(jax_params, jnp.asarray(x), jnp.asarray(y))
+    want = jax.jit(jl.LPIPS().apply)(jax_params, jnp.asarray(x), jnp.asarray(y))
     got = port.lpips(torch.from_numpy(x), torch.from_numpy(y))
     assert got.shape == (shape[0],)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=DIST_ATOL, rtol=0)
@@ -89,7 +89,7 @@ def test_perceptual_loss_pads_and_scores_lanes_like_jax(jax_params, port, channe
     reconstructions each scored against the same images, as the sweep does."""
     x, _ = _pair((2, 16, 16, channels), seed=10 + channels)
     recon = np.random.default_rng(20 + channels).uniform(size=(3,) + x.shape).astype(np.float32)
-    jloss = jl.PerceptualLoss(dimensions=2, params=jax_params)
+    jloss = jax.jit(jl.PerceptualLoss(dimensions=2, params=jax_params))
     want = np.stack([np.asarray(jloss(jnp.asarray(x), jnp.asarray(r))) for r in recon])
     got = port(torch.from_numpy(x), torch.from_numpy(recon))
     assert got.shape == (3, 2)
@@ -116,8 +116,8 @@ def test_fake_3d_perceptual_loss_matches_jax(shared_npz, average_views, drop_rat
     the last view unless average_views asks for all three."""
     x, _ = _pair((2, 12, 10, 8, 1), seed=40)
     recon = np.random.default_rng(41).uniform(size=(2,) + x.shape).astype(np.float32)
-    jloss = jl.PerceptualLoss(dimensions=3, is_fake_3d=True, weights_path=shared_npz,
-                              average_views=average_views, drop_ratio=drop_ratio)
+    jloss = jax.jit(jl.PerceptualLoss(dimensions=3, is_fake_3d=True, weights_path=shared_npz,
+                                      average_views=average_views, drop_ratio=drop_ratio))
     want = np.stack([np.asarray(jloss(jnp.asarray(x), jnp.asarray(r))) for r in recon])
     port3d = pl.PerceptualLoss(weights_path=shared_npz, spatial_dims=3,
                                average_views=average_views, drop_ratio=drop_ratio)

@@ -27,6 +27,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from test_torch_reconstruct import MODEL, OUT_NAMES, make_synthetic_run
 from test_torch_train_cli import train_argv
 
@@ -438,3 +440,76 @@ def test_pipeline_scripts_run_without_jax(tmp_path):
                              "ddpm_ood_tpu_torch.train_vqvae", "ddpm_ood_tpu_torch.train_ddpm",
                              "ddpm_ood_tpu_torch.reconstruct", "ddpm_ood_tpu_torch.ood_detection"]
     assert got["volumes"] == 52
+
+
+def _ddp_clis(root):
+    """The training, VQ-VAE and scoring CLIs in 2 gloo ranks, JAX and the JAX
+    package unimportable in every rank (tests/torch_ddp_worker.py):
+    train_ddpm under DDP, alone under ``python -m torch.distributed.run
+    --standalone --nproc_per_node=2`` (it joins torchrun's group and
+    destroys it); then in 2
+    ranks given torchrun's environment, one group for all, train_ddpm
+    resumed with --fsdp=1 from the DDP run's checkpoint, train_vqvae with
+    --fsdp=1, train_vqvae resumed under DDP, and the scoring CLI on the DDPM
+    run. Returns the ranks' output."""
+    import numpy as np
+
+    from test_torch_fsdp import VQ_ARGV
+    from test_torch_reconstruct import _split
+    from torch_ddp_worker import launch
+
+    rng = np.random.default_rng(0)
+    train, val = _split(root, "train", 8, False, rng), _split(root, "val", 4, False, rng)
+    out = root / "output"
+    common = [f"--output_dir={out}", f"--validation_ids={val}", "--device=cpu",
+              "--num_workers=2"]
+    ddpm = [*common, "--model_name=ddp_fashionmnist", f"--training_ids={train}",
+            "--image_size=16", "--model_type=tiny", "--is_grayscale=1", "--batch_size=2",
+            "--beta_schedule=scaled_linear_beta", "--beta_start=0.0015", "--beta_end=0.0195",
+            "--eval_freq=10", "--checkpoint_every=1"]
+    vq = [*common, "--model_name=vq", f"--training_ids={train}", "--checkpoint_every=1",
+          *(a for a in VQ_ARGV if not a.startswith(("--n_epochs", "--fsdp")))]
+    score = [a for a in ddpm if not a.startswith(("--training_ids", "--eval_freq",
+                                                   "--checkpoint_every"))]
+    score += [f"--in_ids={val}", "--run_out=0", "--num_inference_steps=10",
+              "--inference_skip_factor=3", "--recon_groups=2"]
+    (root / "first.json").write_text(json.dumps([("train_ddpm", ddpm + ["--n_epochs=1"])]))
+    log = launch("cli", root / "first.json", torchrun=True)
+    clis = [("train_ddpm", ddpm + ["--n_epochs=2", "--fsdp=1"]),
+            ("train_vqvae", vq + ["--n_epochs=1", "--fsdp=1"]),
+            ("train_vqvae", vq + ["--n_epochs=2"]),
+            ("reconstruct", score)]
+    (root / "clis.json").write_text(json.dumps(clis))
+    return log + launch("cli", root / "clis.json")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ddp_clis(tmp_path_factory):
+    """``_ddp_clis`` on a thread from the start of the module, beside the
+    other tests' interpreters; (its directory, a future of its output)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = tmp_path_factory.mktemp("ddp_clis")
+    with ThreadPoolExecutor(1) as pool:
+        yield root, pool.submit(_ddp_clis, root)
+
+
+def test_ddp_clis_run_without_jax(ddp_clis):
+    """Each CLI resumed where the one before it stopped: checkpoints of
+    epoch 2 counting 4 images a process an epoch; each rank wrote its shard
+    of the scores and rank 0 merged them."""
+    import torch
+
+    root, future = ddp_clis
+    log = future.result()
+    out = root / "output"
+    assert "Resuming training using checkpoint" in log and "Resuming using checkpoint" in log
+    for name, epoch, images in (("ddp_fashionmnist", 2, 8), ("vq", 2, 8)):  # 4 a process
+        payload = torch.load(out / name / f"checkpoint_{epoch}.pth", weights_only=True)
+        assert (payload["epoch"], payload["global_step"]) == (epoch, images), name
+    ood = out / "ddp_fashionmnist" / "ood"
+    for name in ("val", "in"):
+        lines = (ood / f"results_{name}.csv").read_text().splitlines()
+        shards = [(ood / f".results_{name}.shard{r}.csv").read_text().splitlines()
+                  for r in range(2)]
+        assert len(lines) - 1 == sum(len(s) - 1 for s in shards) == 4 * 4  # 4 images, 4 t

@@ -38,13 +38,18 @@ N_PARAMS = 1_112_801
 
 
 def jax_quality_init() -> dict:
-    """{"/"-joined JAX param path: fp32 array} of the gate's tiny-UNet init."""
+    """{"/"-joined JAX param path: fp32 array} of the gate's tiny-UNet init:
+    ``make_ddpm_state``'s ``unet.init`` on its (1, 16, 16, 1) dummy from
+    PRNGKey(2), as one jitted program (the eager init's bits, a third of its
+    time on the CPU)."""
     from ddpm_ood_tpu.models.unet import make_unet as jax_make_unet
-    from ddpm_ood_tpu.train.ddpm import make_ddpm_state
 
-    state = make_ddpm_state(jax_make_unet("tiny", 2, 1, 1), jax.random.PRNGKey(2), (16, 16, 1))
+    unet = jax_make_unet("tiny", 2, 1, 1)
+    params = jax.jit(lambda rng: unet.init(rng, jnp.zeros((1, 16, 16, 1), jnp.float32),
+                                           jnp.zeros((1,), jnp.int32))["params"])(
+        jax.random.PRNGKey(2))
     return {"/".join(k.key for k in path): np.asarray(v)
-            for path, v in jax.tree_util.tree_leaves_with_path(state.params)}
+            for path, v in jax.tree_util.tree_leaves_with_path(params)}
 
 
 @pytest.fixture(scope="module")
@@ -74,9 +79,9 @@ def test_port_forward_from_the_init_equals_jax(fresh):
     x = rng.standard_normal((2, 16, 16, 1)).astype(np.float32)
     t = np.array([10, 700], np.int32)
     unet = jax_make_unet("tiny", 2, 1, 1)
-    want_out, inter = unet.apply({"params": params}, jnp.asarray(x), jnp.asarray(t),
-                                 capture_intermediates=lambda mdl, _: mdl.name == "norm_out",
-                                 mutable=["intermediates"])
+    want_out, inter = jax.jit(lambda p, x, t: unet.apply(
+        {"params": p}, x, t, capture_intermediates=lambda mdl, _: mdl.name == "norm_out",
+        mutable=["intermediates"]))(params, jnp.asarray(x), jnp.asarray(t))
     want_norm = np.asarray(inter["intermediates"]["norm_out"]["__call__"][0])
 
     model = make_unet("tiny", 2, 1, 1)

@@ -130,13 +130,17 @@ def _jax_reconstruct(root: Path, argv: list, host_noise_fn=host_noise) -> Path:
 
     from ddpm_ood_tpu.config import parse_args_reconstruct
     from ddpm_ood_tpu.models.unet import make_unet as jax_make_unet
-    from ddpm_ood_tpu.train.ddpm import make_ddpm_state
+    from ddpm_ood_tpu.trainers import base as jax_base
     from ddpm_ood_tpu.trainers.reconstruct import Reconstruct as JaxReconstruct
     from ddpm_ood_tpu.utils import checkpoint as jckpt
     from ddpm_ood_tpu.utils.convert_torch import torch_to_flax_unet
+    from test_torch_ldm_reconstruct import shaped_make_ddpm_state
 
     out = root / "jax_output"
-    state = make_ddpm_state(jax_make_unet("tiny", 2, 1, 1), jax.random.PRNGKey(0), (16, 16, 1))
+    # the state only carries the checkpoint's tree: zeros of its shapes (the
+    # eager init takes ~20 s on the CPU), as the JAX CLI restores over it
+    state = shaped_make_ddpm_state(jax_make_unet("tiny", 2, 1, 1), jax.random.PRNGKey(0),
+                                   (16, 16, 1))
     weights = torch.load(root / "output" / MODEL / "checkpoint.pth", weights_only=True)
     params, report = torch_to_flax_unet(weights["model_state_dict"], state.params)
     assert not report["missing"] and not report["unused"], report
@@ -146,7 +150,9 @@ def _jax_reconstruct(root: Path, argv: list, host_noise_fn=host_noise) -> Path:
     jckpt.wait_for_checkpoints()
     args = parse_args_reconstruct([a.replace(str(root / "output"), str(out)) for a in argv
                                    if a != "--device=cpu"])
-    recon = JaxReconstruct(args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_base, "make_ddpm_state", shaped_make_ddpm_state)
+        recon = JaxReconstruct(args)
     if host_noise_fn is not None:
         program = recon._program(args.inference_skip_factor)
         program.host_noise_fn, program.overlap_host_noise = host_noise_fn, False
@@ -329,8 +335,13 @@ def test_unported_flags_raise(tmp_path, flag, name):
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):
+    """More than one process is served under torchrun
+    (tests/test_torch_ddp_reconstruct.py); WORLD_SIZE without torchrun's
+    rendezvous environment is an error that names the launcher."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    for key in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="more than one process .*torch.distributed.run"):
         cli.main(["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m"])
 
 

@@ -152,26 +152,23 @@ def test_sigterm_checkpoints_the_epoch_and_stops(tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) == before  # the guard put the old handler back
 
 
-REFUSED = [("--fsdp=1", "--fsdp")]
-
-
-@pytest.mark.parametrize("flag", ["--simplex_noise=1", "--remat=1", "--profile_dir=prof"])
+@pytest.mark.parametrize("flag", ["--simplex_noise=1", "--remat=1", "--profile_dir=prof",
+                                  "--fsdp=1"])
 def test_simplex_remat_and_profile_flags_are_served(flag):
-    """tests/test_torch_simplex_train.py and test_torch_remat.py run them."""
-    from ddpm_ood_tpu_torch.trainers.ddpm_trainer import refuse_unported_train_flags
-
-    refuse_unported_train_flags(cli.parse_args(["--device=cpu", "--model_name=m", flag]))
-
-
-@pytest.mark.parametrize("flag,name", REFUSED)
-def test_unported_flags_raise(tmp_path, flag, name):
-    with pytest.raises(NotImplementedError, match=name):
-        cli.main(["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m", flag])
+    """The CLI refuses none of them: tests/test_torch_simplex_train.py,
+    test_torch_remat.py and test_torch_fsdp.py run them."""
+    name, value = flag[2:].split("=")
+    assert str(getattr(cli.parse_args(["--device=cpu", "--model_name=m", flag]), name)) == value
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):
+    """More than one process is served under torchrun (tests/test_torch_ddp.py);
+    WORLD_SIZE without torchrun's rendezvous environment is an error that
+    names the launcher, not a silent single-process run."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    for key in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="more than one process .*torch.distributed.run"):
         cli.main(["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m"])
 
 

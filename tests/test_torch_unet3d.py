@@ -68,7 +68,7 @@ def test_3d_forward_matches_jax(pair):
     rng = np.random.default_rng(1)
     x = rng.standard_normal(SHAPE).astype(np.float32)
     t = np.array([3, 850], np.int32)
-    want = np.asarray(unet.apply({"params": params}, jnp.asarray(x), jnp.asarray(t)))
+    want = np.asarray(jax.jit(unet.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t)))
     xt = torch.from_numpy(x).permute(0, 4, 1, 2, 3).contiguous(memory_format=memory_format(3))
     with torch.no_grad():
         got = model(xt, torch.from_numpy(t)).permute(0, 2, 3, 4, 1).numpy()
