@@ -32,7 +32,8 @@ import torch
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 SLEEP_CLOCK_HZ = 2.0e9  # at or above the H100's SM clock, so a sleep lasts at least as asked
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor cores / CUDA cores
+# dense tensor cores (bf16; int8 in ops a second) / CUDA cores (fp32)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 # (B*H, N, D): training (batch 128), scoring (64 images), and two ragged ones
 SHAPES = [(128, 64, 256), (64, 64, 256), (8, 100, 256), (4, 1000, 64)]
 

@@ -4,7 +4,8 @@
     python3 chip_smoke.py    # from the repo root; needs one CUDA card
 
 (``python3 chip_smoke.py --ddp-rank <spec.json>`` is one rank of phase_ddp's
-torchrun launches, not a command to run by hand.)
+torchrun launches, and ``--quant-run <spec.json>`` phase_quant's
+interpreter: neither is a command to run by hand.)
 
 Phases, each fatal on failure:
   1. device   -- a CUDA card is required (there is no CPU fallback); prints the
@@ -15,7 +16,10 @@ Phases, each fatal on failure:
   3. kernels  -- every kernel (GroupNorm on thread-block clusters, and the
                  one-block-per-group GroupNorm at a sample too large for a
                  cluster; flash forward, flash backward dK/dV and dQ, bf16 on
-                 tensor cores, fp32 on CUDA cores) against its plain PyTorch
+                 tensor cores, fp32 on CUDA cores; int8 scoring's absmax and
+                 s8 x s8 -> s32 convolution, whose absmax, codes, int32 sums
+                 and fp32 and bf16 outputs must equal the plain version's
+                 exactly at QCONV_SHAPES) against its plain PyTorch
                  version at the main paths' shapes and ragged ones, with the
                  tolerance stated; each timed
                  (device time, CUDA events, the host's launch overhead hidden
@@ -93,7 +97,16 @@ Phases, each fatal on failure:
                  each in a fresh process, the resumed CSV against an
                  uninterrupted run's, and the resumed run's profiler trace
                  naming the port's GroupNorm and attention kernels.
- 13. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
+ 13. quant    -- (beside phase 14, in a fresh interpreter started after
+                 phase 12) one small-UNet forward of 64 images under
+                 --quantize=mixed (no int8 launch), then the scoring CLI on
+                 the main phase's 32 validation images at its flags under
+                 --quantize=int8 and w8: finite CSVs; scores against the
+                 unquantised run's (median relative difference < 0.05,
+                 correlation > 0.999); 49 absmax and 49 qconv_s8 launches a
+                 forward under int8, none under w8, 27 GroupNorm and 4 flash
+                 a forward in every mode; recons/s per mode.
+ 14. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
                  the small UNet in 3D on (2, 128, 8, 8, 8) latents; the
                  Decathlon VQ-VAE (four 256-channel levels, 2048 codes of
                  width 128) encoding 32^3 volumes, its quantizer's indices
@@ -101,7 +114,7 @@ Phases, each fatal on failure:
                  decoder; the latent ReconProgram (encode, --latent_pad to
                  4^3, 10-step PLMS with the noise passed in, un-pad, decode,
                  fake-3D LPIPS): its (K, B) MSE and LPIPS tables.
- 14. ldm      -- the scoring CLI on a 3D latent diffusion model at the
+ 15. ldm      -- the scoring CLI on a 3D latent diffusion model at the
                  reference's Decathlon geometry (128^3 x 1 volumes, 8^3 x 128
                  latents; seeded VQ-VAE checkpoint.pth with its
                  vqvae_config.json, seeded small 3D UNet), batch 2, LPIPS from
@@ -112,11 +125,11 @@ Phases, each fatal on failure:
                  prints latent-recons/s, the device seconds of encode, UNet
                  forwards, decode and metrics tail (CUDA events), and peak
                  device memory.
- 15. vqvae step, train ldm -- latent-diffusion training: one VQ-VAE +
+ 16. vqvae step, train ldm -- latent-diffusion training: one VQ-VAE +
                  PatchGAN step and one 3D LDM step card against CPU; then
                  train_vqvae and train_ddpm --vqvae_checkpoint at the
                  Decathlon geometry and the scoring CLI on both checkpoints.
- 16. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
+ 17. train    -- runs the training CLI (ddpm_ood_tpu_torch.train_ddpm) in this
                  process on a synthetic 32x32 set: small UNet, batch 128, 2
                  epochs of 4 steps, validation with a 1000-step sample grid.
                  Checks that the loss is finite and falls, the checkpoints'
@@ -124,19 +137,19 @@ Phases, each fatal on failure:
                  GroupNorm on the cluster kernel, every flash forward, dK/dV
                  and dQ on tensor cores), and that the scoring CLI
                  loads the trained checkpoint.pth.
- 17. train remat -- one fp32 step with and without remat on the card (equal
+ 18. train remat -- one fp32 step with and without remat on the card (equal
                  gradients within 1e-5 of each tensor's largest value, remat's
                  launch counts from the block structure); the training CLI
                  with --simplex_noise=1, without and with --remat=1 (images/s
                  and peak memory side by side, launch counts), the second's
                  --profile_dir trace naming the port's kernels.
- 18. pipelines -- the pipeline scripts as users run them, each in a fresh
+ 19. pipelines -- the pipeline scripts as users run them, each in a fresh
                  interpreter and all at once: python -m
                  ddpm_ood_tpu_torch.demo (checkpoints, five finite
                  results CSVs, checkerboard AUROC >= 0.9); smoke_3d_ldm at
                  its defaults (PLMS 10/3) and with SAMPLER=dpm STEPS=25
                  SKIP=1 (eleven finite CSVs each, the AUROC table; these
-                 two start before phase 14 and run beside phases 14-17); the
+                 two start before phase 15 and run beside phases 15-18); the
                  computer-vision dataset prep of a crafted raw tree (IDX
                  gz, CIFAR tarball, SVHN .mat) with urllib's download
                  refused (split sizes, images bit-equal to the archives).
@@ -147,7 +160,7 @@ Phases, each fatal on failure:
                  AUROC). Then parity_run on the prepped splits with
                  checkpoint_300.pth and the results CSVs in place: stages
                  1-3 skipped, auroc_table.json written. Seconds printed.
- 19. ddp      -- beside the pipeline scripts, three launches of python -m
+ 20. ddp      -- beside the pipeline scripts, three launches of python -m
                  torch.distributed.run --standalone, whose ranks run this
                  script with --ddp-rank: 1 rank on NCCL (train_ddpm at the
                  training phase's width, 512 images, batch 128, 2 epochs,
@@ -169,8 +182,9 @@ Phases, each fatal on failure:
 
 Launch counts are set to 0 just before each CLI run (scoring, the serve
 CLI's service, the sample CLI, the samplers' scoring, the two simplex
-scoring runs, the two latent scoring runs, the training runs, each stage of
-the demo, each run of each rank of phase_ddp) and read just after. The
+scoring runs, each quantised scoring run, the two latent scoring runs, the
+training runs, each stage of the demo, each run of each rank of phase_ddp)
+and read just after. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. The script imports no JAX.
 """
@@ -248,7 +262,8 @@ ATTN_SHAPES = [(64, 64, 256), (128, 64, 256), (8, 100, 256), (4, 72, 40), (2, 13
 ATTN_LDM = (544, 8, 256, torch.bfloat16)  # the summary's latent-diffusion attention shape
 ATTN_LDM_TRAIN = (6, 8, 256, torch.bfloat16)  # and the latent-diffusion training step's
 # ptxas must show no spill
-TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
+              "qconv_s8_kernel")
 ATTN_SUMMARY = (128, 64, 256, torch.bfloat16)  # the training path's shape
 
 
@@ -473,6 +488,171 @@ def phase_kernels(dev: torch.device) -> dict:
         summary[name]["ldm_train"] = attn_ldm_train[name]
         summary[name]["max_abs_err"] = worst[name]
         summary[name]["max_rel_err_bf16"] = worst_rel[name]
+    summary.update(quant_kernels(dev))
+    return summary
+
+
+# int8 scoring's kernels, (name, x (B, *spatial, Cin), Cout, window, stride,
+# padding; window None for qdot): the small UNet's quantised sites at the
+# headline's 64 images a UNet call (level 0 and level 1 3x3, the stride-2
+# Downsample, an up-path 1x1 skip, the attention projections over 64 x 64
+# tokens) and the 3D latent path's level 0 (a 17-lane group of batch 2 on 8^3
+# latents); then ragged ones: M, N and K off the tiles (Cin stays a multiple
+# of 8, as the kernel's 16-byte loads need), and XLA's SAME at stride 2 (pads
+# (0, 1)).
+QCONV_SHAPES = [("level0 3x3", (64, 32, 32, 128), 128, 3, 1, "SAME"),
+                ("level1 3x3", (64, 16, 16, 256), 256, 3, 1, "SAME"),
+                ("downsample", (64, 32, 32, 128), 128, 3, 2, [(1, 1)] * 2),
+                ("skip 1x1", (64, 32, 32, 256), 128, 1, 1, "SAME"),
+                ("qdot", (64, 64, 256), 256, None, 1, "SAME"),
+                ("ldm level0 3x3x3", (34, 8, 8, 8, 128), 128, 3, 1, "SAME"),
+                ("ragged", (3, 7, 9, 24), 36, 3, 1, "SAME"),
+                ("same stride 2", (2, 8, 8, 64), 40, 3, 2, "SAME")]
+QCONV_SUMMARY, QCONV_LDM = "level0 3x3", "ldm level0 3x3x3"
+
+
+def _qconv_case(dev, gen, name, shape, cout, window, stride, padding, dtype) -> dict:
+    """One shape of quant_kernels: the kernels against their plain versions
+    (absmax, codes, int32 sums, fp32 and bf16 outputs, all exact); in bf16,
+    their times beside the plain version's, cuDNN's bf16 convolution (or
+    cuBLAS's bf16 linear for qdot: PyTorch has no s8 convolution) and the bound."""
+    import torch.nn.functional as F
+
+    from bench_attention import bound, time_cuda
+    from ddpm_ood_tpu_torch.ops.quant import (
+        conv_padding, qconv_s8, qconv_s8_reference, qdot_s8,
+        qdot_s8_reference, quant_absmax, quant_absmax_reference, quantize_int8, quantize_weight,
+        s8_conv_sum, s8_dot_sum,
+    )
+
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    cin, nd = shape[-1], len(shape) - 2
+    wshape = (cout, cin) + ((window,) * nd if window else ())
+    weight = torch.randn(wshape, generator=gen, device=dev) / math.sqrt(math.prod(wshape[1:]))
+    bias = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+    w = quantize_weight(weight)
+    w_cpu = quantize_weight(weight.cpu())
+    what = f"qconv_s8 {name} x={tuple(shape)} Cout={cout} {str(dtype)[6:]}"
+    if not (torch.equal(w.codes.cpu(), w_cpu.codes) and torch.equal(w.scale.cpu(), w_cpu.scale)):
+        raise PhaseError(f"{what}: weight codes or scales differ, card vs CPU")
+    absmax = quant_absmax(x)
+    if not torch.equal(absmax, quant_absmax_reference(x)):
+        raise PhaseError(f"quant_absmax {what}: {absmax.item()} != "
+                         f"{quant_absmax_reference(x).item()}")
+    xq, sx = quantize_int8(x)
+    xq_cpu, sx_cpu = quantize_int8(x.cpu())
+    if not (torch.equal(xq.cpu(), xq_cpu) and torch.equal(sx.cpu(), sx_cpu)):
+        raise PhaseError(f"{what}: activation codes or scale differ, card vs CPU")
+    if window is None:  # qdot: (B, N, C) tokens
+        def run(out_dtype, b=bias):
+            return qdot_s8(x, absmax, w, b, out_dtype)
+
+        def plain(out_dtype, b=bias):
+            return qdot_s8_reference(x, absmax, w, b, out_dtype)
+
+        ref_sums = s8_dot_sum(xq, w.codes)
+        pads, strides = [(0, 0)], (1,)
+    else:
+        strides = (stride,) * nd
+        pads = conv_padding(shape[1:-1], (window,) * nd, strides, padding)
+
+        def run(out_dtype, b=bias):
+            return qconv_s8(x, absmax, w, b, strides, pads, out_dtype)
+
+        def plain(out_dtype, b=bias):
+            return qconv_s8_reference(x, absmax, w, b, strides, pads, out_dtype)
+
+        ref_sums = s8_conv_sum(xq, w.codes, strides, pads)
+    sums = run(torch.int32, None)
+    torch.cuda.synchronize()
+    if sums.shape != ref_sums.shape or not torch.equal(sums, ref_sums):
+        bad = (sums != ref_sums).sum().item() if sums.shape == ref_sums.shape else "shape"
+        raise PhaseError(f"{what}: int32 sums differ from the exact plain sums ({bad})")
+    for out_dtype in sorted({torch.float32, dtype}, key=str):
+        got, ref = run(out_dtype), plain(out_dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            err = (got.float() - ref.float()).abs().max().item()
+            raise PhaseError(f"{what}: {out_dtype} output differs from the plain version "
+                             f"(max abs {err:.3e}, {(got != ref).sum().item()} elements)")
+    m = sums.numel() // cout
+    k = cin * (window ** nd if window else 1)
+    log(f"{what}: M={m} N={cout} K={k} pads={pads}: absmax, codes, int32 sums and "
+        f"{'fp32' if dtype == torch.float32 else 'fp32 and bf16'} outputs equal the plain "
+        "version's exactly")
+    if dtype != torch.bfloat16:
+        return {}
+    ms = time_cuda(lambda: run(dtype))
+    plain_ms = time_cuda(lambda: plain(dtype))
+    wb, bb = weight.to(dtype), bias.to(dtype)
+    if window is None:
+        lib = time_cuda(lambda: F.linear(x, wb, bb))
+    else:
+        conv = {2: F.conv2d, 3: F.conv3d}[nd]
+        xc = x.permute((0, nd + 1) + tuple(range(1, nd + 1)))  # channels-last memory
+        wc = wb.contiguous(memory_format=(torch.channels_last if nd == 2
+                                          else torch.channels_last_3d))
+        lo = tuple(p for p, _ in pads)
+        lib = (time_cuda(lambda: conv(xc, wc, bb, stride=strides, padding=lo))
+               if all(a == b for a, b in pads) else None)
+    nbytes = x.numel() * x.element_size() + cout * k + 2 * cout * 4 + m * cout * 2
+    row = {"shape": {"x": list(shape), "cout": cout, "window": window, "stride": stride,
+                     "M": m, "N": cout, "K": k},
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+           **bound(nbytes, 2.0 * m * cout * k, torch.int8)}
+    a_ms = time_cuda(lambda: quant_absmax(x))
+    a_plain = time_cuda(lambda: quant_absmax_reference(x))
+    a_lib = time_cuda(lambda: torch.linalg.vector_norm(x, float("inf")))
+    a_row = {"shape": list(shape), "ms": a_ms, "plain_ms": a_plain, "library_ms": a_lib,
+             **bound(x.numel() * x.element_size() + 4, x.numel(), torch.float32)}
+    log(f"  {name} bf16: qconv_s8 {ms:.5f} ms, plain {plain_ms:.5f} ms, library (cuDNN/cuBLAS "
+        f"bf16) " + (f"{lib:.5f} ms" if lib is not None else "-")
+        + f", bound {row['bound_ms']:.5f} ms ({row['bound_by']}); quant_absmax {a_ms:.5f} ms, "
+        f"plain {a_plain:.5f}, vector_norm(inf) {a_lib:.5f}, bound {a_row['bound_ms']:.5f} ms")
+    return {"qconv_s8": row, "quant_absmax": a_row}
+
+
+def quant_kernels(dev: torch.device) -> dict:
+    """quant_absmax and qconv_s8 at QCONV_SHAPES in fp32 and bf16, then the
+    absmax of an all-zero tensor (0, so sx = 1) and a zero input's output
+    (the bias, exactly); the bf16 summary rows of phase_kernels's JSON."""
+    from ddpm_ood_tpu_torch.ops.quant import qconv_s8, quant_absmax, quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, cout, window, stride, padding in QCONV_SHAPES:
+            rows[name, dtype] = _qconv_case(dev, gen, name, shape, cout, window, stride,
+                                            padding, dtype)
+    zeros = torch.zeros((2, 4, 4, 16), device=dev, dtype=torch.bfloat16)
+    w = quantize_weight(torch.randn((8, 16, 3, 3), generator=gen, device=dev))
+    bias = torch.randn((8,), generator=gen, device=dev)
+    absmax = quant_absmax(zeros)
+    y = qconv_s8(zeros, absmax, w, bias, (1, 1), [(1, 1)] * 2, torch.float32)
+    if absmax.item() != 0.0 or not torch.equal(y, bias.expand_as(y)):
+        raise PhaseError("quant_absmax / qconv_s8 on zeros: absmax "
+                         f"{absmax.item()}, output not the bias")
+    # Cin off a multiple of 8, or x off a 16-byte boundary: refused, not launched
+    w20 = quantize_weight(torch.randn((8, 20, 3, 3), generator=gen, device=dev))
+    x20 = torch.randn((2, 4, 4, 20), generator=gen, device=dev)
+    x_off = torch.randn((2 * 4 * 4 * 16 + 1,), generator=gen, device=dev)[1:].view(2, 4, 4, 16)
+    before = qconv_s8.launches
+    for what, xx, ww in (("Cin 20", x20, w20), ("x off 16 bytes", x_off, w)):
+        try:
+            qconv_s8(xx, quant_absmax(xx), ww, None, (1, 1), [(1, 1)] * 2, torch.float32)
+        except ValueError:
+            continue
+        raise PhaseError(f"qconv_s8 with {what}: launched where it must raise ValueError")
+    if qconv_s8.launches != before:
+        raise PhaseError("qconv_s8: a refused call counted a launch")
+    summary = {name: dict(rows[QCONV_SUMMARY, torch.bfloat16][name]) for name in
+               ("qconv_s8", "quant_absmax")}
+    for name in summary:
+        summary[name]["ldm"] = rows[QCONV_LDM, torch.bfloat16][name]
+        summary[name]["all_shapes_bf16"] = {
+            case: rows[case, torch.bfloat16][name] for case, *_ in QCONV_SHAPES
+            if rows[case, torch.bfloat16]}
+        summary[name]["max_abs_err"] = 0.0  # every comparison above is exact
     return summary
 
 
@@ -487,6 +667,11 @@ KERNELS = {
                                 "ddpm_ood_tpu/ops/attention.py:138"),
     "flash_attention_bwd_dq": ("ddpm_ood_tpu_torch/csrc/attention_bwd_dq_tc.cu",
                                "ddpm_ood_tpu/ops/attention.py:181"),
+    # int8 scoring's kernels replace no Pallas kernel: XLA's reduction and
+    # s8 x s8 -> s32 convolution and dot in the JAX package
+    "quant_absmax": ("ddpm_ood_tpu_torch/csrc/quant_absmax.cu",
+                     "ddpm_ood_tpu/ops/quant.py:40"),
+    "qconv_s8": ("ddpm_ood_tpu_torch/csrc/qconv_s8.cu", "ddpm_ood_tpu/ops/quant.py:62"),
 }
 # the main path: small UNet, 32x32x1, 100-step PLMS, skip factor 4, batch 32
 MAIN_ARGS = ["--model_type=small", "--image_size=32", "--is_grayscale=1",
@@ -804,6 +989,176 @@ def phase_main(dev: torch.device, root: Path, npz: Path) -> tuple:
         f"CLI wall {wall:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, rates
+
+
+# phase_quant: in a fresh interpreter beside phase_ldm_pieces, one forward
+# of the small UNet under --quantize=mixed at the headline's 64 images (the
+# small preset has no convolution of 512 channels, so it quantises nothing:
+# the int8 counters read 0; it also warms the interpreter's cuDNN), then the
+# scoring CLI on phase_main's validation batch (32 images, the main path's
+# flags) under int8 and w8
+QUANT_RUNS = ("int8", "w8")
+QUANT_TIMEOUT = 400  # seconds the interpreter may take
+QUANT_SITES = 49  # the small UNet's int8 sites: 33 convolutions, 16 projections
+# int8 and w8 against the unquantised run's scores on the same images:
+# tests/test_quant.py's bounds (median relative difference, correlation)
+QUANT_MEDIAN_REL, QUANT_CORR = 0.05, 0.999
+
+
+def quant_run(spec_path: str) -> int:
+    """``python3 chip_smoke.py --quant-run <spec.json>``: phase_quant's
+    scoring runs in this process, one after another, each with the launch
+    counts set to 0 just before it and read just after; the records go to
+    the spec's ``out``."""
+    from ddpm_ood_tpu_torch import reconstruct as cli
+    from ddpm_ood_tpu_torch.models.unet import QuantConv, QuantDense, WeightOnlyQuantConv
+
+    from ddpm_ood_tpu_torch.models.unet import make_unet, memory_format, random_init_
+
+    spec = json.loads(Path(spec_path).read_text())
+    dev = torch.device("cuda", 0)
+    model = random_init_(make_unet("small", 2, 1, 1, quant="mixed"),
+                         torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=memory_format(2)).eval()
+    x = torch.randn((64, 1, 32, 32), device=dev).contiguous(memory_format=memory_format(2))
+    reset_launches()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        y = model(x, torch.full((64,), 500, device=dev))
+    torch.cuda.synchronize()
+    records = {"mixed": {
+        "launches": read_launches(), "finite": bool(torch.isfinite(y).all()),
+        "sites": {cls.__name__: sum(isinstance(m, cls) for m in model.modules())
+                  for cls in (QuantConv, QuantDense, WeightOnlyQuantConv)}}}
+    log(f"quant run mixed: one forward of 64 images, launches {records['mixed']['launches']}")
+    del model
+    for mode, argv in spec["runs"].items():
+        reset_launches()
+        t0 = time.perf_counter()
+        recon = cli.main(argv)
+        torch.cuda.synchronize()
+        records[mode] = {
+            "seconds": time.perf_counter() - t0, "launches": read_launches(),
+            "evals": sum(p.model_evals for p in recon._programs.values()),
+            "batch_times": recon.batch_times, "csv": str(recon.out_dir / "results_val.csv"),
+            "sites": {cls.__name__: sum(isinstance(m, cls) for m in recon.unet.modules())
+                      for cls in (QuantConv, QuantDense, WeightOnlyQuantConv)}}
+        log(f"quant run {mode}: {records[mode]['seconds']:.1f} s, launches "
+            f"{records[mode]['launches']}")
+        del recon
+    Path(spec["out"]).write_text(json.dumps(records))
+    return 0
+
+
+def start_quant(root: Path) -> tuple:
+    """Start phase_quant's interpreter on copies of phase_main's run; returns
+    (process, its directory, start time)."""
+    out = root / "quant"
+    out.mkdir()
+    runs = {}
+    for mode in QUANT_RUNS:
+        runs[mode] = [f"--output_dir={_copy_run(root, f'quant_{mode}')}",
+                      f"--model_name={SMOKE_MODEL}", f"--validation_ids={root / 'val.csv'}",
+                      f"--in_ids={root / 'in.csv'}", f"--out_ids={root / 'in.csv'}",
+                      "--run_in=0", "--run_out=0", "--device=cuda", *MAIN_ARGS,
+                      f"--quantize={mode}"]
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"out": str(out / "records.json"), "runs": runs}))
+    log("quant: python3 chip_smoke.py --quant-run: a --quantize=mixed forward, then python -m "
+        "ddpm_ood_tpu_torch.reconstruct " + " ".join(runs["int8"][1:])
+        + f" (--quantize={', '.join(QUANT_RUNS)})")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--quant-run",
+                             str(spec)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"), start_new_session=True)
+    return proc, out, time.perf_counter()
+
+
+def _tracks(got: dict, want: dict, what: str) -> dict:
+    """Median relative difference and correlation of two (filename, t) -> mse
+    tables over the same keys, held to QUANT_MEDIAN_REL and QUANT_CORR."""
+    if sorted(got) != sorted(want):
+        raise PhaseError(f"{what}: the CSV's (image, t) rows are not the unquantised run's")
+    a = np.array([got[k] for k in sorted(want)])
+    b = np.array([want[k] for k in sorted(want)])
+    rel = float(np.median(np.abs(a - b) / np.abs(b)))
+    corr = float(np.corrcoef(a, b)[0, 1])
+    log(f"  {what} against the unquantised scores: median relative difference {rel:.3e} "
+        f"(< {QUANT_MEDIAN_REL}), correlation {corr:.6f} (> {QUANT_CORR}), max relative "
+        f"{float(np.max(np.abs(a - b) / np.abs(b))):.3e}")
+    if not (rel < QUANT_MEDIAN_REL and corr > QUANT_CORR):
+        raise PhaseError(f"{what}: scores do not track the unquantised run's")
+    return {"median_rel": rel, "corr": corr}
+
+
+def phase_quant(started: tuple, none_rows: dict, none_rate: float) -> dict:
+    """Wait for start_quant's interpreter and check its runs: finite CSVs;
+    int8 and w8 scores against phase_main's unquantised ones on the same
+    images; the launch counts (QUANT_SITES absmax and qconv_s8 launches a
+    forward under int8, none under w8 and in the mixed forward; 27 GroupNorm
+    and 4 flash a forward in every mode); recons/s per mode. Returns the
+    int8 run's launch counts."""
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
+
+    proc, out, t0 = started
+    try:
+        text, _ = proc.communicate(timeout=QUANT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        text += f"\nkilled after {QUANT_TIMEOUT} s"
+    seconds = time.perf_counter() - t0
+    (out / "run.log").write_text(text)
+    for line in text.splitlines():
+        if line.startswith("quant run"):
+            log("  " + line)
+    if proc.returncode != 0:
+        raise PhaseError(f"quant: the scoring interpreter failed ({proc.returncode}):\n"
+                         + text[-3000:])
+    records = json.loads((out / "records.json").read_text())
+    ts = pndm_timesteps(1000, 100)
+    t_starts = pndm_start_points(ts, 4)
+    forwards = sum(len(s) for s, _ in group_t_starts(ts, t_starts, 16))  # one batch
+    summary = {"card": CARD, "seconds": seconds}
+    mixed = records["mixed"]
+    want = {"quant_absmax": 0, "qconv_s8": 0, "groupnorm_act": GN_PER_FORWARD,
+            "groupnorm_act_cluster": GN_PER_FORWARD, "flash_attention_fwd": ATTN_PER_FORWARD,
+            "flash_attention_fwd_tc": ATTN_PER_FORWARD}
+    got = {k: mixed["launches"][k] for k in want}
+    log(f"quant mixed: one forward, quantised sites {mixed['sites']}, launches {got}")
+    if got != want or any(mixed["sites"].values()) or not mixed["finite"]:
+        raise PhaseError(f"quant mixed: sites {mixed['sites']}, launches {got} (want {want}), "
+                         f"finite output {mixed['finite']}")
+    summary["mixed"] = {"launches": got}
+    for mode in QUANT_RUNS:
+        rec = records[mode]
+        launches, evals = rec["launches"], rec["evals"]
+        _check_csv(Path(rec["csv"]), t_starts, columns=("mse", "perceptual_difference"))
+        int8 = QUANT_SITES * evals if mode == "int8" else 0
+        sites = rec["sites"]
+        want_sites = {"QuantConv": 33 if mode == "int8" else 0,
+                      "QuantDense": 16 if mode == "int8" else 0,
+                      "WeightOnlyQuantConv": 33 if mode == "w8" else 0}
+        want = {"quant_absmax": int8, "qconv_s8": int8,
+                "groupnorm_act": GN_PER_FORWARD * evals,
+                "groupnorm_act_cluster": GN_PER_FORWARD * evals,
+                "flash_attention_fwd": ATTN_PER_FORWARD * evals,
+                "flash_attention_fwd_tc": ATTN_PER_FORWARD * evals}
+        got = {k: launches[k] for k in want}
+        log(f"quant {mode}: {evals} UNet forwards, quantised sites {sites}, launches {got}")
+        if sites != want_sites or got != want or evals != forwards:
+            raise PhaseError(f"quant {mode}: sites {sites} (want {want_sites}), {evals} "
+                             f"forwards (want {forwards}), launches {got} (want {want})")
+        n, secs = (sum(v) for v in zip(*rec["batch_times"]))
+        entry = {"recons_per_s": n / secs, "batch_seconds": secs, "launches": got}
+        entry.update(_tracks(_rows(Path(rec["csv"])), none_rows, f"quant {mode}"))
+        summary[mode] = entry
+        log(f"quant {mode}: {n / secs:.2f} recons/s ({n} in {secs:.2f} s, one batch in a "
+            f"fresh interpreter beside phase_ldm_pieces, so contended; phase_main's "
+            f"unquantised batches, taken alone, read {none_rate:.2f}) on {CARD}")
+    log(f"quant: phase took {seconds:.1f} s from its interpreter's start")
+    log(json.dumps({"quant": summary}))
+    return records["int8"]["launches"]
 
 
 def phase_ood(root: Path) -> dict:
@@ -1809,10 +2164,12 @@ def _launch_counters():
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
     )
     from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
+    from ddpm_ood_tpu_torch.ops.quant import qconv_s8, quant_absmax
 
     return {"groupnorm_act": groupnorm_act, "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-            "flash_attention_bwd_dq": flash_attention_bwd_dq}
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "quant_absmax": quant_absmax, "qconv_s8": qconv_s8}
 
 
 # wrappers that also count their bf16 tensor-core launches, read as "<name>_tc"
@@ -1845,7 +2202,8 @@ def _step_launches(forwards: int, backwards: int, bf16: bool, remat: tuple = (0,
     want = {"groupnorm_act": gn, "groupnorm_act_cluster": gn,
             "flash_attention_fwd": ATTN_PER_FORWARD * forwards + remat[1] * backwards,
             "flash_attention_bwd_dkv": ATTN_PER_FORWARD * backwards,
-            "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards}
+            "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards,
+            "quant_absmax": 0, "qconv_s8": 0}  # training is never quantised
     want.update({f"{name}_tc": want[name] if bf16 else 0 for name in TC_COUNTED})
     return want
 
@@ -3359,12 +3717,15 @@ def main() -> int:
             os.environ["LPIPS_WEIGHTS_NPZ"] = str(npz)  # both scoring CLI runs read it
             phase_metrics(dev, npz)
             score, gaussian = phase_main(dev, root, npz)
+            none_rows = _rows(root / "output" / SMOKE_MODEL / "ood" / "results_val.csv")
             phase_ood(root)
             served = phase_serve(dev, root)
             sampled = phase_sample(dev, root)
             samplers = phase_samplers(dev, root)
             simplex = phase_simplex_resume(dev, root, gaussian)
+            quant_started = start_quant(root)
             phase_ldm_pieces(dev, npz)
+            quant = phase_quant(quant_started, none_rows, gaussian["all"])
             # the 3D LDM smoke scripts beside the latent-diffusion and
             # training phases, and the torchrun launches beside the other
             # pipeline scripts: fresh interpreters, mostly starting up and
@@ -3387,8 +3748,8 @@ def main() -> int:
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     paths = {"score": score, "serve": served, "sample": sampled, "samplers": samplers,
-             "simplex": simplex, "ldm": ldm, "train": train, "train_ldm": train_ldm, **remat,
-             "pipelines": pipelines, "ddp": ddp}
+             "simplex": simplex, "quant": quant, "ldm": ldm, "train": train,
+             "train_ldm": train_ldm, **remat, "pipelines": pipelines, "ddp": ddp}
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -3408,4 +3769,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase_ddp's torchrun launches
         sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--quant-run"]:  # phase_quant's scoring interpreter
+        sys.exit(quant_run(sys.argv[2]))
     sys.exit(main())

@@ -17,7 +17,7 @@ batches: the best of three after one warm request. With
 CPU in seconds. It prints one JSON line with the JAX script's keys
 (``backend`` is the torch device type) plus ``device`` (the card's name and
 power limit from nvidia-smi, or "cpu") and ``mean_sweep_seconds``.
-``--quantize`` other than none raises NotImplementedError.
+``--quantize=int8|w8|mixed`` benchmarks the quantised UNet.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--skip", type=int, default=4)
     p.add_argument("--quantize", default="none", choices=("none", "int8", "w8", "mixed"),
-                   help="int8 post-training quantization: not ported (anything but none raises)")
+                   help="post-training quantization of the UNet under the service "
+                   "(reconstruct --quantize; ops/quant.py)")
     p.add_argument("--batch_window_ms", type=float, default=0.0,
                    help="also measure dynamic batching: `batch` concurrent single-image "
                    "clients against a BatchingScoringService with this window")
@@ -57,10 +58,9 @@ def main(argv=None) -> dict:
     from .quality_check import card_name_and_power
     from .recon.sweep import ReconProgram
     from .serve import BatchingScoringService, ScoringService, collect_stats, make_server
-    from .trainers.base import refuse_flags, refuse_multi_process, resolve_device
+    from .trainers.base import refuse_multi_process, resolve_device
 
     args = parse_args(argv)
-    refuse_flags(args, [("--quantize", args.quantize != "none", "")])
     refuse_multi_process("the serving benchmark")
     device = resolve_device(args.device)
     batch = 4 if args.quick else args.batch
@@ -71,7 +71,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    unet = random_init_(make_unet(model, 2, 1, 1), torch.Generator().manual_seed(0))
+    unet = random_init_(make_unet(model, 2, 1, 1, quant=args.quantize),
+                        torch.Generator().manual_seed(0))
     unet = unet.to(device, memory_format=memory_format(2)).eval()
     prog = ReconProgram(
         sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195, device=device),

@@ -10,9 +10,9 @@ package's ``scripts/serve.py`` and ``scripts/sample.py``, which keep
 ``--image_roi`` and ``--latent_pad`` as raw strings: here they are parsed
 with ast.literal_eval too, and ``--device`` is added.
 
-Flags the port does not serve (``--quantize`` other than none, ``--aot_cache``)
-are still parsed here; the CLI that reads them raises NotImplementedError
-naming the flag. ``--fsdp=1`` shards with FSDP2 (``parallel/fsdp.py``).
+Flags the port does not serve (``--aot_cache``, and ``--quantize`` other than
+none under more than one process) are still parsed here; the CLI that reads
+them raises NotImplementedError naming the flag. ``--fsdp=1`` shards with FSDP2 (``parallel/fsdp.py``).
 ``--profile_dir`` writes a ``torch.profiler`` trace where the JAX CLIs write
 a ``jax.profiler`` one.
 """
@@ -359,11 +359,11 @@ def parse_args_reconstruct(argv=None) -> argparse.Namespace:
         "--quantize", default="none", choices=("none", "int8", "w8", "mixed"),
         help="Framework extension: post-training quantization of the UNet "
         "block convolutions for the scoring sweep (ops/quant.py). int8: "
-        "s8 x s8 -> s32 on the MXU (2x bf16 peak on v5e); w8: weight-only "
-        "int8 (see ops/quant.py:wconv for the honest TPU semantics); mixed: "
-        "s8 x s8 only at >=512-wide convs where the lowering wins, bf16 "
-        "elsewhere (models/unet.py:MIXED_QUANT_MIN_CH). Same checkpoint, no "
-        "calibration; validate quality via scripts/quality_check.py "
+        "s8 x s8 -> s32 on the card's int8 tensor cores (csrc/qconv_s8.cu); "
+        "w8: weight-only int8, dequantized in the compute dtype; mixed: "
+        "s8 x s8 only at >=512-wide convs (models/unet.py:MIXED_QUANT_MIN_CH), "
+        "unquantized elsewhere. Same checkpoint, no calibration; one process "
+        "only; validate quality via python -m ddpm_ood_tpu_torch.quality_check "
         "--quantize <mode>.",
     )
     parser.add_argument(
@@ -489,8 +489,8 @@ def parse_args_serve(argv=None) -> argparse.Namespace:
                    help="also return z_score_ssim per image (needs a results_val.csv "
                    "produced with --score_ssim=1)")
     p.add_argument("--quantize", default="none", choices=("none", "int8", "w8", "mixed"),
-                   help="int8 post-training quantization of the UNet: not ported "
-                   "(anything but none raises)")
+                   help="post-training quantization of the served UNet "
+                   "(reconstruct --quantize; ops/quant.py)")
     p.add_argument("--recon_groups", default="auto",
                    help="lane groups in the sweep; 'auto' = 16 for 2D, 3 for 3D, or an integer")
     p.add_argument("--batch_size", type=int, default=8,

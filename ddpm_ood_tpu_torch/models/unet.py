@@ -25,11 +25,26 @@ pass (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
 them in ``nn.remat``: a block keeps only its inputs for the backward, and
 runs its forward again there, GroupNorm and flash kernels included. It
 changes memory and time, never values, and does nothing without gradients.
+
+``quant`` (scoring-time post-training quantisation, ``ops/quant.py``):
+``"int8"`` runs every res-block, downsample and upsample convolution and
+the attention projections s8 x s8 -> s32 (``QuantConv``, ``QuantDense``);
+``"w8"`` the same convolutions with per-channel int8 weights dequantised in
+the compute dtype (``WeightOnlyQuantConv``; the attention projections stay
+unquantised); ``"mixed"`` quantises only the convolutions with
+min(cin, cout) >= ``MIXED_QUANT_MIN_CH`` and the projections of at least
+that width (none in the tiny and small presets). ``conv_in``, ``conv_out``,
+``time_emb_proj`` and the time MLP stay unquantised in every mode. The
+quantised modules hold the same parameters, under the same names and
+shapes, as the unquantised ones, so every checkpoint loads unchanged. Each
+computes in the autocast dtype where autocast is on (bf16 on the card), as
+the JAX modules compute in ``self.dtype``, and returns that dtype.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Sequence
 
 import torch
@@ -39,6 +54,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.groupnorm import groupnorm_act
+from ..ops.quant import (WeightCache, dequantize_weight, qconv_s8, qdot_s8, quant_absmax,
+                         quantize_weight)
+
+QUANT_MODES = ("none", "int8", "w8", "mixed")
 
 
 def memory_format(spatial_dims: int) -> torch.memory_format:
@@ -84,13 +103,115 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
-class _Conv(nn.Module):
-    """A 2D or 3D conv wrapped one level deep, for monai's ``.conv`` key segment."""
+def PlainConv(dims: int, cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Module:
+    """The unquantised convolution: ``nn.Conv2d`` or ``nn.Conv3d``, padding
+    kernel // 2 on both sides of every axis (JAX's Downsample pads (1, 1) at
+    stride 2, and "SAME" is (1, 1) or (0, 0) at stride 1)."""
+    return {2: nn.Conv2d, 3: nn.Conv3d}[dims](cin, cout, kernel, stride=stride,
+                                              padding=kernel // 2)
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a layer computes in: autocast's where autocast is on for x's
+    device (bf16 on the card), else x's (fp32 on the CPU)."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype
+
+
+class _QuantConvBase(nn.Module):
+    """``weight`` (Cout, Cin, *window) and ``bias`` (Cout,) taken from a
+    fresh ``PlainConv``, so names, shapes and default init are nn.Conv's, and
+    a cache of their quantised form (``ops.quant.WeightCache``)."""
 
     def __init__(self, dims: int, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__()
-        conv = {2: nn.Conv2d, 3: nn.Conv3d}[dims]
-        self.conv = conv(cin, cout, kernel, stride=stride, padding=kernel // 2)
+        plain = PlainConv(dims, cin, cout, kernel, stride)
+        self.weight, self.bias = plain.weight, plain.bias
+        self.strides = (stride,) * dims
+        self.pads = [(kernel // 2, kernel // 2)] * dims
+        self._cache = WeightCache()
+
+
+class QuantConv(_QuantConvBase):
+    """``--quantize=int8`` (JAX ``QuantConv``): per-output-channel int8
+    weights, quantised once per load of the weights; the activation
+    quantised per tensor, per call, on the card inside ``qconv_s8`` after one
+    ``quant_absmax``; int32 sums dequantised in fp32, returned in the compute
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = _compute_dtype(x)
+        xl = _to_channels_last_dims(x.to(dtype)).contiguous()  # free for channels-last x
+        w = self._cache.get(self.weight, quantize_weight)
+        return _to_channels_first_dims(
+            qconv_s8(xl, quant_absmax(xl), w, self.bias, self.strides, self.pads, dtype))
+
+
+class WeightOnlyQuantConv(_QuantConvBase):
+    """``--quantize=w8`` (JAX ``WeightOnlyQuantConv``): the per-output-channel
+    int8 weight dequantised in the compute dtype (kept until the weights
+    change), then an ordinary convolution in that dtype with the bias, as
+    the unquantised layers run under autocast. Plain PyTorch, as JAX's
+    ``wconv`` is XLA work. In fp32 this is JAX's ``wconv`` arithmetic; in
+    bf16 the bias is added inside the convolution before its output is
+    rounded, where XLA adds it in fp32 after."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = _compute_dtype(x)
+        w = self._cache.get(self.weight, dequantize_weight, dtype)
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        return conv(x.to(dtype), w, self.bias.to(dtype), self.strides,
+                    [lo for lo, _ in self.pads])
+
+
+class QuantDense(nn.Linear):
+    """``--quantize=int8`` attention projections (JAX ``QuantDense``):
+    ``nn.Linear``'s parameters, the product as ``qdot_s8``."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features)
+        self._cache = WeightCache()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = _compute_dtype(x)
+        x = x.to(dtype).contiguous()
+        w = self._cache.get(self.weight, quantize_weight)
+        return qdot_s8(x, quant_absmax(x), w, self.bias, dtype)
+
+
+# s8 x s8 won over bf16 only at wide convolutions in the JAX package's TPU
+# measurements (models/unet.py there); "mixed" quantises exactly the convs
+# and projections at or above this width. Not re-tuned on the card.
+MIXED_QUANT_MIN_CH = int(os.environ.get("DDPM_OOD_TPU_MIXED_MIN_CH", "512"))
+
+
+def _pick_conv(quant: str | None, cin: int, cout: int):
+    if quant == "int8":
+        return QuantConv
+    if quant == "w8":
+        return WeightOnlyQuantConv
+    if quant == "mixed":
+        return QuantConv if min(cin, cout) >= MIXED_QUANT_MIN_CH else PlainConv
+    return PlainConv
+
+
+def _pick_dense(quant: str | None, ch: int):
+    if quant == "int8":
+        return QuantDense
+    if quant == "mixed" and ch >= MIXED_QUANT_MIN_CH:
+        return QuantDense
+    return nn.Linear  # w8: the attention projections stay unquantised
+
+
+class _Conv(nn.Module):
+    """A 2D or 3D conv wrapped one level deep, for monai's ``.conv`` key
+    segment; ``quant`` picks its class (``_pick_conv``)."""
+
+    def __init__(self, dims: int, cin: int, cout: int, kernel: int, stride: int = 1,
+                 quant: str | None = None):
+        super().__init__()
+        self.conv = _pick_conv(quant, cin, cout)(dims, cin, cout, kernel, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -109,14 +230,17 @@ class _Remat(nn.Module):
 
 
 class ResnetBlock(_Remat):
-    def __init__(self, dims: int, in_ch: int, out_ch: int, temb_ch: int, norm_num_groups: int):
+    def __init__(self, dims: int, in_ch: int, out_ch: int, temb_ch: int, norm_num_groups: int,
+                 quant: str | None = None):
         super().__init__()
         self.norm1 = FusedGroupNormAct(norm_num_groups, in_ch, act="silu")
-        self.conv1 = _Conv(dims, in_ch, out_ch, 3)
+        self.conv1 = _Conv(dims, in_ch, out_ch, 3, quant=quant)
         self.time_emb_proj = nn.Linear(temb_ch, out_ch)
         self.norm2 = FusedGroupNormAct(norm_num_groups, out_ch, act="silu")
-        self.conv2 = _Conv(dims, out_ch, out_ch, 3)
-        self.skip_connection = _Conv(dims, in_ch, out_ch, 1) if in_ch != out_ch else None
+        # out -> out: under "mixed" each conv's own shape decides
+        self.conv2 = _Conv(dims, out_ch, out_ch, 3, quant=quant)
+        self.skip_connection = (_Conv(dims, in_ch, out_ch, 1, quant=quant)
+                                if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
@@ -129,15 +253,17 @@ class ResnetBlock(_Remat):
 
 
 class AttentionBlock(_Remat):
-    def __init__(self, ch: int, num_head_channels: int, norm_num_groups: int):
+    def __init__(self, ch: int, num_head_channels: int, norm_num_groups: int,
+                 quant: str | None = None):
         super().__init__()
         self.num_heads = max(ch // num_head_channels, 1)
         self.head_dim = ch // self.num_heads
         self.norm = FusedGroupNormAct(norm_num_groups, ch)
-        self.to_q = nn.Linear(ch, ch)
-        self.to_k = nn.Linear(ch, ch)
-        self.to_v = nn.Linear(ch, ch)
-        self.proj_attn = nn.Linear(ch, ch)
+        dense = _pick_dense(quant, ch)
+        self.to_q = dense(ch, ch)
+        self.to_k = dense(ch, ch)
+        self.to_v = dense(ch, ch)
+        self.proj_attn = dense(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[:2]
@@ -155,18 +281,19 @@ class AttentionBlock(_Remat):
 
 
 class Downsample(nn.Module):
-    def __init__(self, dims: int, ch: int):
+    def __init__(self, dims: int, ch: int, quant: str | None = None):
         super().__init__()
-        self.op = _Conv(dims, ch, ch, 3, stride=2)  # padding 1 both sides, as JAX's (1, 1)
+        # padding 1 both sides, as JAX's (1, 1)
+        self.op = _Conv(dims, ch, ch, 3, stride=2, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
 
 
 class Upsample(nn.Module):
-    def __init__(self, dims: int, ch: int):
+    def __init__(self, dims: int, ch: int, quant: str | None = None):
         super().__init__()
-        self.conv = _Conv(dims, ch, ch, 3)
+        self.conv = _Conv(dims, ch, ch, 3, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # autocast would run nearest upsampling in fp32; it is exact in any dtype
@@ -186,11 +313,12 @@ class _Level(nn.Module):
 
 
 class _Middle(nn.Module):
-    def __init__(self, dims: int, ch: int, temb_ch: int, heads_ch: int, groups: int):
+    def __init__(self, dims: int, ch: int, temb_ch: int, heads_ch: int, groups: int,
+                 quant: str | None = None):
         super().__init__()
-        self.resnet_1 = ResnetBlock(dims, ch, ch, temb_ch, groups)
-        self.attention = AttentionBlock(ch, heads_ch, groups)
-        self.resnet_2 = ResnetBlock(dims, ch, ch, temb_ch, groups)
+        self.resnet_1 = ResnetBlock(dims, ch, ch, temb_ch, groups, quant)
+        self.attention = AttentionBlock(ch, heads_ch, groups, quant)
+        self.resnet_2 = ResnetBlock(dims, ch, ch, temb_ch, groups, quant)
 
     def forward(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         return self.resnet_2(self.attention(self.resnet_1(h, temb)), temb)
@@ -211,6 +339,7 @@ class DiffusionModelUNet(nn.Module):
         num_res_blocks: int = 1,
         num_head_channels: int = 256,
         norm_num_groups: int = 32,
+        quant: str | None = None,
     ):
         super().__init__()
         if spatial_dims not in (2, 3):
@@ -230,28 +359,29 @@ class DiffusionModelUNet(nn.Module):
         for level, out_ch in enumerate(chs):
             blk = _Level()
             for _ in range(num_res_blocks):
-                blk.resnets.append(ResnetBlock(d, ch, out_ch, temb_ch, g))
+                blk.resnets.append(ResnetBlock(d, ch, out_ch, temb_ch, g, quant))
                 ch = out_ch
                 if attention_levels[level]:
-                    blk.attentions.append(AttentionBlock(ch, num_head_channels, g))
+                    blk.attentions.append(AttentionBlock(ch, num_head_channels, g, quant))
                 skip_chs.append(ch)
             if level != len(chs) - 1:
-                blk.downsampler = Downsample(d, ch)
+                blk.downsampler = Downsample(d, ch, quant)
                 skip_chs.append(ch)
             self.down_blocks.append(blk)
 
-        self.middle_block = _Middle(d, ch, temb_ch, num_head_channels, g)
+        self.middle_block = _Middle(d, ch, temb_ch, num_head_channels, g, quant)
 
         self.up_blocks = nn.ModuleList()
         for level in reversed(range(len(chs))):
             blk = _Level()
             for _ in range(num_res_blocks + 1):
-                blk.resnets.append(ResnetBlock(d, ch + skip_chs.pop(), chs[level], temb_ch, g))
+                blk.resnets.append(ResnetBlock(d, ch + skip_chs.pop(), chs[level], temb_ch, g,
+                                               quant))
                 ch = chs[level]
                 if attention_levels[level]:
-                    blk.attentions.append(AttentionBlock(ch, num_head_channels, g))
+                    blk.attentions.append(AttentionBlock(ch, num_head_channels, g, quant))
             if level != 0:
-                blk.upsampler = Upsample(d, ch)
+                blk.upsampler = Upsample(d, ch, quant)
             self.up_blocks.append(blk)
 
         # out.1 is the SiLU, fused into out.0's GroupNorm kernel
@@ -298,13 +428,15 @@ def make_unet(model_type: str, spatial_dims: int, in_channels: int, out_channels
               remat: bool = False, quant: str | None = None) -> DiffusionModelUNet:
     """The tiny / small / big presets of the JAX package, 2D or 3D, with
     every res and attention block recomputed in the backward pass when
-    `remat`; there is no quantised variant yet."""
-    if quant not in (None, "none"):
-        raise NotImplementedError(f"quantized UNet ({quant!r}) is not ported")
+    `remat`, and quantised for scoring by `quant` (None or one of
+    ``QUANT_MODES``; see the module docstring)."""
+    if (quant or "none") not in QUANT_MODES:
+        raise ValueError(f"quant must be None or one of {QUANT_MODES}, got {quant!r}")
     if model_type not in PRESETS:
         raise ValueError(f"Do not recognise model type {model_type}")
     model = DiffusionModelUNet(spatial_dims=spatial_dims, in_channels=in_channels,
-                               out_channels=out_channels, **PRESETS[model_type])
+                               out_channels=out_channels, **PRESETS[model_type],
+                               quant=None if quant in (None, "none") else quant)
     for block in model.modules():
         if isinstance(block, _Remat):
             block.remat = bool(remat)

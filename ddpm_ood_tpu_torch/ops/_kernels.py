@@ -37,7 +37,8 @@ NVCC_FLAGS = [
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # every C entry point's argument types, in order; all return a cudaError_t
 SIGNATURES = {
     # x, gamma, beta, y, B, HW, C, G, eps, act, dtype, device, stream
@@ -56,6 +57,11 @@ SIGNATURES = {
     "ddpm_flash_attn_bwd_dq": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     # q, k, v, dO, lse, delta, dq, BH, N, D, scale, device, stream (bf16, tensor cores)
     "ddpm_flash_attn_bwd_dq_tc": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+    # x, n, dtype, out (one fp32, zeroed), device, stream
+    "ddpm_quant_absmax": [_P, _L, _I, _P, _I, _P],
+    # x, in dtype, absmax, packed weight, weight scale, bias (or NULL), y,
+    # out dtype, geometry (19 ints), device, stream
+    "ddpm_qconv_s8": [_P, _I, _P, _P, _P, _P, _P, _I, _IP, _I, _P],
 }
 
 

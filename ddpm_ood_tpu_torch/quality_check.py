@@ -33,9 +33,9 @@ Differences from the JAX script:
   limit as ``nvidia-smi`` reports them, and ``timing`` the seconds of
   training and of each sampler's scoring and its recons/s; with
   ``--compare_to`` the JSON also holds ``compare_quality``'s lines;
-- ``--quantize`` other than none raises NotImplementedError (quantised
-  scoring is not ported); ``--simplex`` trains and scores with exact
-  simplex noise, as the JAX script does;
+- ``--quantize=<mode>`` also scores the first sampler with that mode,
+  reported as ``<sampler>+<mode>`` as the JAX script does; ``--simplex``
+  trains and scores with exact simplex noise, as the JAX script does;
 - ``--checkpoint`` scores a given reference-schema ``.pth`` (for example a
   model the JAX package trained, converted) instead of training one, which
   tells a fault of training from one of scoring.
@@ -175,7 +175,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="train with a weight EMA at this decay and ALSO score with "
                         "--use_ema (reported as '<sampler>+ema')")
     parser.add_argument("--quantize", default="none", choices=("none", "int8", "w8", "mixed"),
-                        help="ALSO score the first sampler with this PTQ mode (not ported)")
+                        help="ALSO score the first sampler with this PTQ mode "
+                        "(reconstruct --quantize=<mode>), reported as '<sampler>+<mode>': "
+                        "side-by-side quality check of the quantized scoring path")
     parser.add_argument("--elbo", action="store_true",
                         help="reconstruct with --score_elbo and additionally report the "
                         "likelihood-target (elbo / mse+elbo) AUROCs")
@@ -216,9 +218,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.elbo = args.ssim = False
         args.near_freq, args.n_eval = 3.0, 1024
     args.samplers = args.samplers or "plms"
-    if args.quantize != "none":
-        raise NotImplementedError(f"--quantize={args.quantize} is not ported to "
-                                  "ddpm_ood_tpu_torch")
     return args
 
 
@@ -237,11 +236,12 @@ def main(argv=None) -> dict:
     from .config import parse_args_reconstruct, parse_args_train_ddpm
     from .trainers.base import refuse_multi_process, resolve_device
     from .trainers.ddpm_trainer import DDPMTrainer
-    from .trainers.reconstruct import Reconstruct
+    from .trainers.reconstruct import Reconstruct, refuse_unported_flags
 
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    refuse_unported_flags(args)  # --quantize under more than one process
     refuse_multi_process("the quality gate")
     device = resolve_device(args.device)
 
@@ -282,17 +282,19 @@ def main(argv=None) -> dict:
 
     out_dir = Path(ns.output_dir) / ns.model_name / "ood"
     tokens = args.samplers.split(",")
-    variants = [parse_token(t, args.steps, args.skip) + (0,) for t in tokens]
+    variants = [parse_token(t, args.steps, args.skip) + (0, "none") for t in tokens]
     if args.ema_decay > 0:
-        variants.append(parse_token(tokens[0], args.steps, args.skip) + (1,))
+        variants.append(parse_token(tokens[0], args.steps, args.skip) + (1, "none"))
+    if args.quantize != "none":
+        variants.append(parse_token(tokens[0], args.steps, args.skip) + (0, args.quantize))
     per_sampler = {}
-    for sampler, steps, skip, label, use_ema in variants:
+    for sampler, steps, skip, label, use_ema, quantize in variants:
         rargs = parse_args_reconstruct([])
         vars(rargs).update(
             common, in_ids=in_csv, out_ids=f"{out_csv},{near_csv}", first_n=None,
             first_n_val=None, run_val=1, run_in=1, run_out=1, num_inference_steps=steps,
             inference_skip_factor=skip, drop_last=False, eval_checkpoint=None,
-            sampler=sampler, use_ema=use_ema, quantize="none", score_elbo=int(args.elbo),
+            sampler=sampler, use_ema=use_ema, quantize=quantize, score_elbo=int(args.elbo),
             score_ssim=int(args.ssim), recon_groups=args.recon_groups)
         if args.pinned:
             rargs.batch_size = 32  # scoring only; training stays at batch 8
@@ -307,7 +309,7 @@ def main(argv=None) -> dict:
                        + (("ssim_distance", "mse+ssim") if args.ssim else ())):
             entry[f"easy_{target}"] = score_run(out_dir, "outset", target)
             entry[f"hard_{target}"] = score_run(out_dir, "nearset", target)
-        key = label + ("+ema" if use_ema else "")
+        key = label + ("+ema" if use_ema else "") + (f"+{quantize}" if quantize != "none" else "")
         per_sampler[key] = entry
         n = sum(r for r, _ in recon.batch_times)
         secs = sum(s for _, s in recon.batch_times)

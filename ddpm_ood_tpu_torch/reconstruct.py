@@ -8,8 +8,10 @@ It takes the JAX package's ``reconstruct.py`` flags
 (``config.parse_args_reconstruct``, a copy of the JAX package's parser) plus ``--device``
 (default ``cuda``, which raises when there is no card). Under torchrun each
 process scores its partition of every dataset on its card, and rank 0
-merges the processes' CSVs. Flags the port does not serve yet raise
-NotImplementedError naming the flag.
+merges the processes' CSVs. ``--quantize=int8|w8|mixed`` scores with the
+quantised UNet (``ops/quant.py``; int8 on the card's s8 kernels, the plain
+versions with ``--device=cpu``), in one process only. Flags the port does
+not serve raise NotImplementedError naming the flag.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import sys
 from .config import parse_args_reconstruct
 from .parallel.mesh import distributed
 from .trainers.base import resolve_device
-from .trainers.reconstruct import Reconstruct
+from .trainers.reconstruct import Reconstruct, refuse_unported_flags
 
 
 def parse_args(argv=None):
@@ -38,6 +40,7 @@ def main(argv=None) -> Reconstruct:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    refuse_unported_flags(args)  # before joining a process group
     device = resolve_device(args.device)
     with distributed(device):
         recon = Reconstruct(args, device)

@@ -38,11 +38,13 @@ first batch of a dataset pass draws.
 
 It takes the flags of the JAX package's ``scripts/serve.py`` plus
 ``--device`` (default cuda, which raises without a card). ``--quantize``
-other than none and ``--aot_cache`` (TPU-only) raise NotImplementedError
-naming the flag. The service runs one process: a launch of more than one
-(``WORLD_SIZE`` > 1) raises NotImplementedError, since the JAX service's
-``shard_fn``, which shards a request batch over one process's devices, is
-not ported.
+serves the quantised UNet (int8, w8 or mixed; a request batched with others
+is quantised with them, as in JAX); ``--aot_cache`` (TPU-only) raises
+NotImplementedError naming the flag. A hot reload re-reads the weights in
+place, and the quantised layers re-quantise them at their next call. The
+service runs one process: a launch of more than one (``WORLD_SIZE`` > 1)
+raises NotImplementedError, since the JAX service's ``shard_fn``, which
+shards a request batch over one process's devices, is not ported.
 """
 
 from __future__ import annotations

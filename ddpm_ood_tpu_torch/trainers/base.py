@@ -125,10 +125,13 @@ class BaseTrainer:
         pad = getattr(args, "latent_pad", None)  # parsed by ast.literal_eval
         self.latent_pad = tuple(int(p) for p in pad) if pad else None
 
+        quantize = getattr(args, "quantize", "none")
         self.unet = make_unet(
             args.model_type, self.spatial_dimension, self.ddpm_channels, self.ddpm_channels,
-            remat=bool(getattr(args, "remat", 0)), quant=getattr(args, "quantize", "none"),
+            remat=bool(getattr(args, "remat", 0)), quant=quantize,
         )
+        if quantize not in (None, "none"):
+            log.info(f"Quantized scoring enabled: {quantize} block convolutions")
         self.b_scale = float(args.b_scale)
         self.sched = make_schedule(
             schedule=args.beta_schedule,

@@ -32,6 +32,10 @@ scoring generator. Every scored batch is appended to a partial CSV at once;
 ``torch.profiler``. ``--remat`` is accepted and changes nothing: scoring
 takes no gradient. ``DDPM_OOD_TPU_CRASH_AFTER_BATCHES=N`` SIGKILLs the
 process after N batches are persisted, to test the resume.
+``--quantize=int8|w8|mixed`` scores with the quantised UNet
+(``models/unet.py``, ``ops/quant.py``); each activation scale is taken over
+a whole UNet call (every lane and image of a group), as in JAX, so it is
+refused under more than one process.
 
 Under torchrun (``parallel/mesh.py``) each process scores its partition of
 every dataset (``partition_for_process``: equal partitions, wrap-padded) with
@@ -85,9 +89,17 @@ CRASH_ENV = "DDPM_OOD_TPU_CRASH_AFTER_BATCHES"  # fault injection for the resume
 
 
 def refuse_unported_flags(args) -> None:
-    """Raise NotImplementedError naming the first flag this slice does not serve."""
+    """Raise NotImplementedError naming the first flag this slice does not
+    serve: ``--aot_cache``, and ``--quantize`` other than none under more
+    than one process (``WORLD_SIZE`` > 1). JAX takes one activation absmax
+    over the whole sharded batch; a rank here sees only its partition, so its
+    scales, and so its scores, would differ."""
+    quantized = getattr(args, "quantize", "none") not in (None, "none")
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     refuse_flags(args, [
-        ("--quantize", getattr(args, "quantize", "none") not in (None, "none"), ""),
+        ("--quantize", quantized and world > 1,
+         f"quantised scoring over more than one process, WORLD_SIZE={world}: the activation "
+         "scales would be each rank's, where JAX takes them over the global batch"),
         ("--aot_cache", bool(getattr(args, "aot_cache", None)), "a TPU-only feature"),
     ])
 

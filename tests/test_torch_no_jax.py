@@ -18,7 +18,9 @@ is no nvcc raises KernelBuildError instead of returning. The same holds for
 scoring a 3D latent diffusion model (``--spatial_dimension=3
 --vqvae_checkpoint --latent_pad``) with fake-3D LPIPS, SSIM and error maps,
 and for training one: ``python -m ddpm_ood_tpu_torch.train_vqvae`` on 3D
-volumes, then the training CLI on its checkpoint.
+volumes, then the training CLI on its checkpoint; and for quantised scoring,
+``reconstruct --quantize=int8`` on the plain int8 versions, and ``python -m
+ddpm_ood_tpu_torch.bench_quant_micro --device=cpu`` at a tiny shape.
 """
 
 import json
@@ -181,6 +183,58 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert got["build"].startswith("KernelBuildError: nvcc not found"), got["build"]
     assert got["served"] == [["per_t", "z_score_mse", "z_score_perceptual"], 4]
     assert got["samples"] == [[2, 16, 16, 1]]
+
+
+CHILD_QUANT = r"""
+import contextlib, io, json, runpy, sys
+
+BLOCKED = set(sys.argv[1].split(","))
+for name in BLOCKED:
+    sys.modules[name] = None
+
+from ddpm_ood_tpu_torch import reconstruct
+from ddpm_ood_tpu_torch.models.unet import QuantConv, QuantDense
+from ddpm_ood_tpu_torch.ops.quant import qconv_s8, quant_absmax
+
+recon = reconstruct.main(json.loads(sys.argv[2]))
+sys.argv = ["bench_quant_micro"] + json.loads(sys.argv[3])
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):  # python -m ddpm_ood_tpu_torch.bench_quant_micro
+    runpy.run_module("ddpm_ood_tpu_torch.bench_quant_micro", run_name="__main__")
+print(json.dumps({
+    "evals": sum(p.model_evals for p in recon._programs.values()),
+    "sites": sum(isinstance(m, (QuantConv, QuantDense)) for m in recon.unet.modules()),
+    "launches": [quant_absmax.launches, qconv_s8.launches],
+    "csvs": sorted(p.name for p in recon.out_dir.glob("results_*.csv")),
+    "mse": [float(line.split(",")[5]) for line in
+            (recon.out_dir / "results_val.csv").read_text().splitlines()[1:]],
+    "bench": [json.loads(line) for line in printed.getvalue().splitlines()],
+    "leaked": sorted(m for m, mod in sys.modules.items()
+                     if mod is not None and m.split(".")[0] in BLOCKED),
+}))
+"""
+
+
+def test_quantised_scoring_runs_without_jax(tmp_path):
+    argv = make_synthetic_run(tmp_path) + ["--quantize=int8", "--run_in=0", "--run_out=0"]
+    micro = ["--device=cpu", "--batch=2", "--hw=4", "--cin=16", "--cout=8", "--iters=2",
+             "--repeats=1"]
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_QUANT, ",".join(BLOCKED), json.dumps(argv),
+         json.dumps(micro)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "LPIPS_WEIGHTS_NPZ": str(tmp_path / "lpips.npz")},
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    assert got["evals"] > 0 and got["sites"] == 49 and got["launches"] == [0, 0]
+    assert got["csvs"] == ["results_val.csv"]
+    assert len(got["mse"]) == 4 * 4 and all(m > 0 for m in got["mse"])
+    assert [b["variant"] for b in got["bench"]] == ["bf16", "int8dyn", "int8pre"]
+    assert all(b["backend"] == "cpu" and b["shape"] == [2, 4, 4, 16, 8] and b["best_s"] > 0
+               for b in got["bench"])
 
 
 CHILD_LDM = r"""

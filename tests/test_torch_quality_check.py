@@ -100,7 +100,10 @@ def test_pinned_settings_and_sampler_subsets():
 
 
 @pytest.mark.parametrize("flag,name", [("--quantize=int8", "--quantize")])
-def test_unported_flags_raise(flag, name):
+def test_unported_flags_raise(flag, name, monkeypatch):
+    """--quantize in more than one process (tests/test_torch_quant_cli.py
+    runs the quantised variant in one)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=name):
         qc.main(["--device=cpu", flag])
 

@@ -328,7 +328,12 @@ def test_latent_diffusion_flags_are_served(flag):
 
 
 @pytest.mark.parametrize("flag,name", REFUSED)
-def test_unported_flags_raise(tmp_path, flag, name):
+def test_unported_flags_raise(tmp_path, monkeypatch, flag, name):
+    """--aot_cache always; --quantize in more than one process, where each
+    rank would take its own activation scales (tests/test_torch_quant_cli.py
+    scores it in one)."""
+    if name == "--quantize":
+        monkeypatch.setenv("WORLD_SIZE", "2")
     argv = ["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m", flag]
     with pytest.raises(NotImplementedError, match=name):
         cli.main(argv)

@@ -213,7 +213,11 @@ def test_serve_cli_end_to_end(run):
 
 @pytest.mark.parametrize("flag,name", [("--quantize=int8", "--quantize"),
                                        ("--aot_cache=sweep.aot", "--aot_cache")])
-def test_unported_flags_raise(run, flag, name):
+def test_unported_flags_raise(run, flag, name, monkeypatch):
+    """--aot_cache always; --quantize in more than one process
+    (tests/test_torch_quant_cli.py serves it in one)."""
+    if name == "--quantize":
+        monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=name):
         serve.main(run + [flag])
 

@@ -114,10 +114,16 @@ def test_memory_format_does_not_change_the_result():
 
 @pytest.mark.parametrize("kw", [dict(quant="mixed"), dict(quant="int8"), dict(quant="w8")])
 def test_unported_variants_raise(kw):
+    """The quantised variants are ported (tests/test_torch_quant_unet.py):
+    each builds with the unquantised model's state_dict, and a mode the JAX
+    package does not have raises."""
     args = dict(model_type="tiny", spatial_dims=2, in_channels=1, out_channels=1)
-    args.update(kw)
-    with pytest.raises(NotImplementedError):
-        make_unet(**args)
+    with torch.device("meta"):
+        want = {k: v.shape for k, v in make_unet(**args).state_dict().items()}
+        got = {k: v.shape for k, v in make_unet(**args, **kw).state_dict().items()}
+    assert got == want
+    with pytest.raises(ValueError, match="quant"):
+        make_unet(**args, quant=kw["quant"] + "_fp8")
 
 
 def test_unknown_model_type():
