@@ -3294,6 +3294,35 @@ DDP_SCORE_RTOL = 1e-3
 DDP_FSDP_RTOL = 1e-4
 DDP_TIMEOUT = 600  # seconds a launch may take
 DDP_STRIDE_WARNING = "Grad strides do not match bucket view strides"
+# --quantize=int8 scoring at 2 ranks: 12 images at batch 2, PLMS 10/3, each
+# rank's own noise; then a resume from partials holding 2 batches on rank 0
+# and 1 on rank 1. Rank 0's one-process program on the global batches (each
+# rank's i-th batch, rank order, their noise joined) is the reference. Every
+# int8 product runs on qconv_s8, per image, under the global absmax, so the
+# int8 scores at 2 ranks are held to the one-process ones at SHARD_INT8_REL
+# (read: exact served, within 1.1e-7 in the CSV; a rank's own absmax moves a
+# sweep by ~1e-3), and the scale itself exactly (each call's absmax the
+# larger of the two ranks' own max |x|). Unquantised, cuDNN's bf16
+# convolutions of 16 against 32 images sum in another order (read: median
+# 2e-4, max 1.5e-3): those are held to the median relative difference and
+# the correlation
+DDP_QUANT_IMAGES, DDP_QUANT_BATCH, DDP_QUANT_HELD = 12, 2, (2, 1)
+SHARD_INT8_REL = 1e-6
+SHARD_MEDIAN_REL, SHARD_CORR = 1e-2, 0.999
+# the service sharded over 2 ranks on the card (gloo) against 1 rank on NCCL:
+# the small UNet at 32x32x1, batch 32, on PLMS 10/3 (4 start points, 26
+# forwards a sweep; the main grid's 944 would take 46,256 gloo reductions of
+# ~1 ms a sweep under int8, and PLMS 20/4's 50 put the phase past the
+# pipeline scripts beside it), on a copy of the main run with a validation
+# table at that grid
+SHARD_SERVE_STEPS, SHARD_SERVE_SKIP = 10, 3
+SHARD_SERVE_GRID = [f"--num_inference_steps={SHARD_SERVE_STEPS}",
+                    f"--inference_skip_factor={SHARD_SERVE_SKIP}"]
+SHARD_SERVE_ARGS = [f"--model_name={SMOKE_MODEL}", "--host=127.0.0.1", "--device=cuda",
+                    *[a for a in MAIN_ARGS if not a.startswith(("--num_inference_steps",
+                                                                "--inference_skip_factor"))],
+                    *SHARD_SERVE_GRID]
+SHARD_SERVE_SWEEPS = 4  # the warmup, a full batch, one image, a full batch after /reload
 
 
 def _content_draw(num_train_timesteps: int):
@@ -3379,6 +3408,148 @@ def _wrapped_grads(device: torch.device, wrap: str) -> dict:
             "grad_scale": scale, "loss_whole": losses["whole"], "loss_wrapped": losses[wrap]}
 
 
+class _AbsmaxCalls(list):
+    """Every int8 product's (this rank's max |x|, the absmax it received),
+    the model module's ``qconv_s8`` and ``qdot_s8`` wrapped while the
+    ``with`` lasts. The pairs stay on the card until its end, so recording
+    adds no host sync to the run it watches."""
+
+    def __enter__(self):
+        from ddpm_ood_tpu_torch.models import unet
+
+        self._pairs, self._orig = [], (unet.qconv_s8, unet.qdot_s8)
+
+        def recorded(fn):
+            def call(x, absmax, *a, **k):
+                self._pairs.append(torch.stack([x.detach().abs().amax().float(),
+                                                absmax.detach().float().reshape(())]))
+                return fn(x, absmax, *a, **k)
+            return call
+
+        unet.qconv_s8, unet.qdot_s8 = map(recorded, self._orig)
+        return self
+
+    def __exit__(self, *exc):
+        from ddpm_ood_tpu_torch.models import unet
+
+        unet.qconv_s8, unet.qdot_s8 = self._orig
+        if self._pairs:
+            self.extend(map(tuple, torch.stack(self._pairs).cpu().tolist()))
+        return False
+
+
+def _check_absmax_spans(ranks: list, calls: int, what: str) -> None:
+    """Each rank made `calls` int8 products, and every one took the max over
+    the ranks of their own max |x| (for one rank, its own)."""
+    if not all(len(r) == calls > 0 for r in ranks):
+        raise PhaseError(f"{what}: {[len(r) for r in ranks]} int8 calls, expected {calls}")
+    spans = [len({got for _, got in pairs}) == 1 and pairs[0][1] == max(loc for loc, _ in pairs)
+             for pairs in zip(*ranks)]
+    log(f"{what}: {sum(spans)} of {len(spans)} int8 calls took the max over the "
+        f"{len(ranks)} rank(s)' own max |x| on every rank")
+    if not all(spans):
+        raise PhaseError(f"{what}: an int8 call's absmax is not the max over the ranks")
+
+
+def _held_close(a: list, b: list, rel: float, what: str) -> float:
+    """The largest relative difference of two paired score lists, held to
+    `rel`."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape or not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise PhaseError(f"{what}: scores {a.shape} against {b.shape}, or not finite")
+    worst = float((np.abs(a - b) / np.abs(b)).max())
+    log(f"ddp: {what}: largest relative difference {worst:.3e} (tolerance {rel:.0e})")
+    if not worst <= rel:
+        raise PhaseError(f"{what}: the scores differ by {worst:.3e} relative")
+    return worst
+
+
+def _ddp_quant_run(run: dict, device: torch.device, out: Path) -> dict:
+    """``reconstruct.main`` under --quantize=int8 on this rank, every int8
+    product's (this rank's max |x|, the absmax it received) recorded; its
+    launch counts; partials of ``run["held"][rank]`` batches and the CLI
+    again with --resume=1; on rank 0, the one-process program on the global
+    batches (rank 0's reference)."""
+    import dataclasses
+
+    from ddpm_ood_tpu_torch import reconstruct
+    from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+    from ddpm_ood_tpu_torch.serve import NOISE_SEED
+    from ddpm_ood_tpu_torch.trainers.reconstruct import _stem
+
+    rank, world = pmesh.process_index(), pmesh.process_count()
+    with _AbsmaxCalls() as calls:
+        recon = reconstruct.main(run["argv"])
+    torch.cuda.synchronize()
+    program = next(iter(recon._programs.values()))
+    rec = {"launches": read_launches(), "evals": program.model_evals, "absmax": calls,
+           "batches": len(recon.batch_times), "batch_times": recon.batch_times}
+    ood, k = recon.out_dir, len(program.t_starts)
+    batches = [(list(b["filename"]), np.moveaxis(b["image"], 1, -1)) for b in recon.val_loader]
+    torch.save(batches, out / f"quant_batches{rank}.pt")
+    pmesh.coordination_barrier("quant scored")
+    rec["merged"] = (ood / "results_val.csv").read_text()
+    lines = (ood / f".results_val.shard{rank}.csv").read_text().splitlines()
+    lines = lines[:1 + k * DDP_QUANT_BATCH * run["held"][rank]]
+    (ood / f".results_val.shard{rank}.partial.csv").write_text(
+        "\n".join(",".join(line.split(",")[1:]) for line in lines) + "\n")
+    pmesh.coordination_barrier("quant read")
+    if rank == 0:
+        (ood / "results_val.csv").unlink()
+    pmesh.coordination_barrier("quant partials written")
+    resumed = reconstruct.main(run["argv"] + ["--resume=1"])
+    rec.update(resumed=(ood / "results_val.csv").read_text(),
+               resumed_batches=len(resumed.batch_times))
+    # what an int8 call's all-reduce of its absmax costs: a 0-dim tensor on
+    # the card, MAX over the ranks (through the host under gloo)
+    scalar = torch.ones((), device=device)
+    for n in (20, 500):  # a warm-up, then the timed run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pmesh.all_reduce_max_(scalar)
+        torch.cuda.synchronize()
+    rec["absmax_reduce_us"] = (time.perf_counter() - t0) / 500 * 1e6
+    if rank == 0:  # the one-process program on the global batches, noise joined
+        per_rank = [torch.load(out / f"quant_batches{r}.pt", weights_only=False)
+                    for r in range(world)]
+        gens = [torch.Generator(device=device).manual_seed(NOISE_SEED + r) for r in range(world)]
+        noise = iter([torch.cat([torch.randn((k,) + x.shape, generator=g, device=device)
+                                 for g, (_, x) in zip(gens, group)], dim=1).cpu().numpy()
+                      for group in zip(*per_rank)])
+        one = dataclasses.replace(program, sharded=False, host_noise_fn=(
+            lambda shape, t_starts: next(noise, np.zeros(shape, np.float32))))
+        reference = {}
+        for group in zip(*per_rank):
+            t_starts, mse, _ = one(np.concatenate([x for _, x in group]))
+            mse = mse.cpu().numpy()
+            names = [f for names, _ in group for f in names]
+            for j, f in enumerate(names):
+                for i, t in enumerate(t_starts):
+                    reference[f"{_stem(f)},{int(t)}"] = float(mse[i, j])
+        one.close()
+        rec["reference"] = reference
+    pmesh.coordination_barrier("quant done")
+    return rec
+
+
+def serve_rank(spec_path: str) -> int:
+    """One rank of a phase_ddp serve launch: ``serve.main`` (the CLI's entry
+    point) with the spec's flags, the launch counts set to 0 before it and
+    read once SIGTERM has ended it, with every int8 product's absmax
+    (``_AbsmaxCalls``), to ``<out>/rank<r>.json``."""
+    from ddpm_ood_tpu_torch import serve
+
+    spec = json.loads(Path(spec_path).read_text())
+    reset_launches()
+    with _AbsmaxCalls() as calls:
+        serve.main(spec["argv"])
+    rank = int(os.environ.get("RANK", "0"))
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(
+        {"launches": read_launches(), "absmax": calls}))
+    return 0
+
+
 def ddp_rank(spec_path: str) -> int:
     """One rank of a phase_ddp launch: every run of the spec in this process
     (one process group for all: torch names a re-made default group as the
@@ -3416,6 +3587,8 @@ def ddp_rank(spec_path: str) -> int:
             recon = reconstruct.main(run["argv"])
             rec["evals"] = sum(p.model_evals for p in recon._programs.values())
             rec["batch_times"] = recon.batch_times
+        elif run["kind"] == "quant":
+            rec.update(_ddp_quant_run(run, device, Path(spec["out"])))
         else:  # zero-noise scoring
             args = reconstruct.parse_args(run["argv"])
             recon = Reconstruct(args, device)
@@ -3425,7 +3598,7 @@ def ddp_rank(spec_path: str) -> int:
             rec["evals"] = program.model_evals
             rec["csv"] = (recon.out_dir / "results_val.csv").read_text()
         torch.cuda.synchronize()
-        rec["launches"] = read_launches()
+        rec.setdefault("launches", read_launches())
         rec["seconds"] = time.perf_counter() - t0
         log(f"ddp rank {rank}/{world} {run['name']}: {rec['seconds']:.1f} s, launches "
             f"{rec['launches']}")
@@ -3473,6 +3646,236 @@ def _ddp_launch(root: Path, name: str, nproc: int, runs: list, shared: bool) -> 
     return seconds, text, [{rec["name"]: rec for rec in recs} for recs in records]
 
 
+def _children(pid: int) -> list:
+    """The processes whose parent is `pid` (from /proc)."""
+    kids = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                stat = (d / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                kids.append(int(d.name))
+    return kids
+
+
+def _serve_launch(top: Path, name: str, nproc: int, quantize: str, images: np.ndarray) -> dict:
+    """``python -m torch.distributed.run --nproc_per_node=<nproc> chip_smoke.py
+    --serve-rank``: ``serve.main`` on a copy of the main run (2 ranks on the
+    card over gloo, 1 on NCCL); POST /score a full batch and one image, a
+    new checkpoint, POST /reload, a full batch again, /statz; then SIGTERM to
+    every rank, as torchrun forwards it. Returns the responses, /statz, the
+    ranks' launch counts and the launcher's exit code."""
+    import threading
+
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    out = top / "ddp" / name
+    out.mkdir()
+    run = _copy_run(top, f"ddp_{name}") / SMOKE_MODEL
+    t_starts = pndm_start_points(pndm_timesteps(1000, SHARD_SERVE_STEPS), SHARD_SERVE_SKIP)
+    table = [",filename,type,t,perceptual_difference,mse"]
+    for t in t_starts:  # 4 validation rows a start point of the served grid
+        for i in range(4):
+            table.append(f"{len(table) - 1},v{i},val,{int(t)},{0.02 + 0.01 * i},{0.01 + 0.002 * i}")
+    (run / "ood" / "results_val.csv").write_text("\n".join(table) + "\n")
+    port = _free_port()
+    argv = [f"--output_dir={run.parent}", *SHARD_SERVE_ARGS, f"--port={port}",
+            f"--quantize={quantize}"]
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"out": str(out), "argv": argv}))
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "PYTHONUNBUFFERED": "1"}
+    env.pop("DDPM_OOD_TORCH_SHARED_CARD", None)
+    if nproc > 1:
+        env["DDPM_OOD_TORCH_SHARED_CARD"] = "1"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"), "--serve-rank", str(spec)]
+    log(f"ddp: {name}: python -m torch.distributed.run --standalone --nproc_per_node={nproc} "
+        f"chip_smoke.py --serve-rank: ddpm_ood_tpu_torch.serve.main({' '.join(argv)})"
+        + (" with DDPM_OOD_TORCH_SHARED_CARD=1 (gloo)" if nproc > 1 else " (NCCL)"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, start_new_session=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    rec = {"name": name, "nproc": nproc, "quantize": quantize}
+    try:
+        while not any("serving OOD scores for " in ln for ln in lines):
+            if proc.poll() is not None or time.perf_counter() - t0 > DDP_TIMEOUT:
+                raise PhaseError(f"ddp {name}: the service did not start:\n"
+                                 + "".join(lines[-60:]))
+            time.sleep(0.2)
+        rec["ready_seconds"] = time.perf_counter() - t0
+        health = json.loads(_http(port, "/healthz")[1])
+        # a request of 3 channels: rank 0 refuses it before the other ranks
+        status, body = _http(port, "/score", _npy(np.repeat(images[:1], 3, axis=-1)))
+        if status != 400:
+            raise PhaseError(f"ddp {name}: a 3-channel /score got {status}: {body[:300]}")
+        responses = []
+        for request in (images, images[:1]):
+            status, body = _http(port, "/score", _npy(request))
+            if status != 200:
+                raise PhaseError(f"ddp {name}: /score {status}: {body[:300]}")
+            responses.append(json.loads(body)["scores"])
+        save_checkpoint(run / "checkpoint.pth", seeded_unet(9).state_dict(), epoch=9)
+        status, body = _http(port, "/reload", b"")
+        if status != 200:
+            raise PhaseError(f"ddp {name}: /reload {status}: {body[:300]}")
+        status, body = _http(port, "/score", _npy(images))
+        if status != 200:
+            raise PhaseError(f"ddp {name}: /score after /reload {status}: {body[:300]}")
+        responses.append(json.loads(body)["scores"])
+        rec.update(health=health, responses=responses,
+                   statz=json.loads(_http(port, "/statz")[1]))
+        ranks = _children(proc.pid)
+        rec["ranks_signalled"] = len(ranks)
+        for pid in ranks:  # as torchrun forwards SIGTERM: every rank
+            os.kill(pid, signal.SIGTERM)
+        rec["returncode"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:  # torchrun starts each rank in a session of its own
+            for pid in _children(proc.pid):
+                os.kill(pid, signal.SIGKILL)
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        reader.join(timeout=10)
+        (out / "launch.log").write_text("".join(lines))
+    rec["seconds"] = time.perf_counter() - t0
+    rec["log"] = "".join(lines)
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             if (out / f"rank{r}.json").is_file() else None for r in range(nproc)]
+    rec["launches"] = [r and r["launches"] for r in ranks]
+    rec["absmax"] = [r and r["absmax"] for r in ranks]
+    return rec
+
+
+def _served_mse(responses: list) -> list:
+    """The per-(request, image, t) mse of a launch's responses, in order."""
+    return [v["mse"] for scores in responses for r in scores for _, v in sorted(
+        r["per_t"].items(), key=lambda kv: int(kv[0]))]
+
+
+def _paired(a: list, b: list, what: str) -> dict:
+    """Median relative difference and correlation of two paired score
+    lists, held to SHARD_MEDIAN_REL and SHARD_CORR."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape or not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise PhaseError(f"{what}: scores {a.shape} against {b.shape}, or not finite")
+    rel = np.abs(a - b) / np.abs(b)
+    out = {"median_rel": float(np.median(rel)), "max_rel": float(rel.max()),
+           "corr": float(np.corrcoef(a, b)[0, 1])}
+    log(f"ddp: {what}: median relative difference {out['median_rel']:.3e} (< "
+        f"{SHARD_MEDIAN_REL:.0e}), max {out['max_rel']:.3e}, correlation {out['corr']:.6f} "
+        f"(> {SHARD_CORR})")
+    if not (out["median_rel"] < SHARD_MEDIAN_REL and out["corr"] > SHARD_CORR):
+        raise PhaseError(f"{what}: the scores do not agree: {out}")
+    return out
+
+
+def _check_ddp_quant(a: dict, b: dict) -> dict:
+    """--quantize=int8 scoring at 2 ranks: 27 + 4 + 49 + 49 launches a
+    forward on each rank; every int8 product's absmax the larger of the two
+    ranks' own max |x|; the merged CSV against rank 0's one-process program
+    on the global batches; the resume from unequal partials."""
+    for rank, rec in enumerate((a, b)):
+        what = f"ddp quant, rank {rank}"
+        _check_launches(rec["launches"], rec["evals"], what, bf16=True)
+        int8 = QUANT_SITES * rec["evals"]
+        if (rec["launches"]["quant_absmax"], rec["launches"]["qconv_s8"]) != (int8, int8):
+            raise PhaseError(f"{what}: launches {rec['launches']}, expected {int8} int8 each")
+    _check_absmax_spans([a["absmax"], b["absmax"]], QUANT_SITES * a["evals"], "ddp quant")
+    merged = {k: float(r["mse"]) for k, r in _csv_rows(a["merged"]).items()}
+    reference = {tuple(k.split(",")[:1]) + (int(k.split(",")[1]),): v
+                 for k, v in a["reference"].items()}
+    if sorted(merged) != sorted(reference) or a["merged"] != b["merged"]:
+        raise PhaseError("ddp quant: the merged CSV's rows are not the global batches'")
+    keys = sorted(reference)
+    csv_worst = _held_close([merged[k] for k in keys], [reference[k] for k in keys],
+                            SHARD_INT8_REL, "int8 merged CSV mse at 2 ranks against the "
+                            "one-process program on the global batches")
+    held = DDP_QUANT_IMAGES // (2 * DDP_QUANT_BATCH)
+    resumed = {k: float(r["mse"]) for k, r in _csv_rows(a["resumed"]).items()}
+    worst = max(abs(resumed[k] - merged[k]) / abs(merged[k]) for k in merged)
+    log(f"ddp quant: resume from partials of {list(DDP_QUANT_HELD)} batches: "
+        f"{a['resumed_batches']} and {b['resumed_batches']} of {held} batches rescored; the "
+        f"merged CSV reproduced to {worst:.2e} relative (tolerance {RESUME_TOL:.0e})")
+    if (sorted(resumed) != sorted(merged) or not worst <= RESUME_TOL
+            or [a["resumed_batches"], b["resumed_batches"]] != [held - min(DDP_QUANT_HELD)] * 2):
+        raise PhaseError("ddp quant: the resume did not reproduce the merged CSV")
+    per_forward = [QUANT_SITES * rec["absmax_reduce_us"] / 1e3 for rec in (a, b)]
+    log(f"ddp quant: one absmax all-reduce at 2 ranks on the card over gloo: "
+        f"{a['absmax_reduce_us']:.1f} / {b['absmax_reduce_us']:.1f} us (rank 0 / 1, 500 in a "
+        f"row), {per_forward[0]:.2f} / {per_forward[1]:.2f} ms a forward of {QUANT_SITES} int8 "
+        f"calls, on {CARD}")
+    return {"csv_worst_rel": csv_worst, "resume_worst_rel": worst,
+            "int8_calls": len(a["absmax"]),
+            "absmax_reduce_us": [a["absmax_reduce_us"], b["absmax_reduce_us"]],
+            "seconds": [a["seconds"], b["seconds"]]}
+
+
+def _check_serve_sharded(recs: dict) -> dict:
+    """The serve launches: every rank exited 0 on SIGTERM and counted 27
+    GroupNorm and 4 flash launches (and 49 + 49 int8 under int8) a forward
+    of its SHARD_SERVE_SWEEPS sweeps, every int8 absmax the max over the
+    ranks; 2 ranks' responses against 1 rank's, before and after /reload
+    (int8 at SHARD_INT8_REL); the seconds of a served sweep."""
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
+
+    ts = pndm_timesteps(1000, SHARD_SERVE_STEPS)
+    forwards = sum(len(a) for a, _ in group_t_starts(ts, pndm_start_points(ts, SHARD_SERVE_SKIP),
+                                                       16))
+    evals = SHARD_SERVE_SWEEPS * forwards
+    summary = {}
+    for quantize in ("none", "int8"):
+        one, two = recs[(1, quantize)], recs[(2, quantize)]
+        for rec in (one, two):
+            what = f"ddp serve, {rec['nproc']} rank(s), --quantize={quantize}"
+            statz = rec["statz"]
+            if (rec["returncode"] != 0 or rec["ranks_signalled"] != rec["nproc"]
+                    or rec["health"]["world_size"] != rec["nproc"]
+                    or (statz["world_size"], statz["sweeps"], statz["reloads"])
+                    != (rec["nproc"], 3, 1)
+                    or "draining in-flight requests and shutting down" not in rec["log"]):
+                raise PhaseError(f"{what}: exit {rec['returncode']}, {rec['ranks_signalled']} "
+                                 f"ranks signalled, /statz {statz}:\n{rec['log'][-3000:]}")
+            if rec["nproc"] > 1 and "waiting for rank 0 to stop" not in rec["log"]:
+                raise PhaseError(f"{what}: rank 1 did not wait for rank 0's stop")
+            for rank, launches in enumerate(rec["launches"]):
+                if launches is None:
+                    raise PhaseError(f"{what}: rank {rank} wrote no launch counts")
+                _check_launches(launches, evals, f"{what}, rank {rank}", bf16=True)
+                int8 = QUANT_SITES * evals if quantize == "int8" else 0
+                if (launches["quant_absmax"], launches["qconv_s8"]) != (int8, int8):
+                    raise PhaseError(f"{what}, rank {rank}: {launches}, expected {int8} "
+                                     "quant_absmax and qconv_s8 launches")
+            if quantize == "int8":
+                _check_absmax_spans(rec["absmax"], QUANT_SITES * evals, what)
+        for i, what in enumerate(("a full batch", "one image (wrap-padded)",
+                                  "a full batch after /reload")):
+            got, want = _served_mse([two["responses"][i]]), _served_mse([one["responses"][i]])
+            what = f"served per-t mse, --quantize={quantize}, {what}, 2 ranks against 1"
+            if quantize == "int8":
+                _held_close(got, want, SHARD_INT8_REL, what)
+            else:
+                _paired(got, want, what)
+        if _served_mse(two["responses"][:1]) == _served_mse(two["responses"][2:]):
+            raise PhaseError(f"ddp serve --quantize={quantize}: /reload changed no score")
+        summary[quantize] = {
+            f"{rec['nproc']} rank(s)": {
+                "mean_sweep_seconds": rec["statz"]["mean_sweep_seconds"],
+                "ready_seconds": rec["ready_seconds"], "seconds": rec["seconds"]}
+            for rec in (one, two)}
+        log(f"ddp: served sweep ({forwards} forwards, batch {N_IMAGES}, --quantize={quantize}) "
+            f"on {CARD}: 1 rank (NCCL) {one['statz']['mean_sweep_seconds']:.3f} s, 2 ranks on "
+            f"the card (gloo) {two['statz']['mean_sweep_seconds']:.3f} s (/statz, the 3 "
+            "requests' mean, contended by the phase's other launches)")
+    return summary
+
+
 def _csv_rows(text: str) -> dict:
     """{(filename, t): row} of a results CSV's text, the first of each."""
     rows = {}
@@ -3518,19 +3921,24 @@ def phase_ddp(dev: torch.device, root: Path) -> dict:
     and 2 ranks on the one card (gloo), a resume of each, --fsdp=1 at 1 and
     at 2 ranks, a frozen-parameter epoch at both, the scoring CLI at 2 ranks
     on 64 images (PLMS 100/4), zero-noise scoring (PLMS 10/3) at 1 and 2
-    ranks, and fp32 DDP and FSDP2 gradients at 2 ranks against the whole
-    batch's. The three launches run at once. Returns the launch counts of
-    every rank's runs, summed."""
+    ranks, fp32 DDP and FSDP2 gradients at 2 ranks against the whole
+    batch's, --quantize=int8 scoring at 2 ranks with a resume from unequal
+    partials (``_ddp_quant_run``), and the serve CLI under torchrun at 1
+    rank (NCCL) and 2 ranks on the card, unquantised and int8
+    (``_serve_launch``). The seven launches run at once. Returns the launch
+    counts of every rank's runs, summed, by path: "ddp", "ddp_quant" and
+    "serve_sharded"."""
     from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
     from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
 
     t_phase = time.perf_counter()
-    root = root / "ddp"
+    top, root = root, root / "ddp"
     root.mkdir()
     rng = np.random.default_rng(5)
     train_csv = _write_split(root, "train", DDP_IMAGES, False, rng)
     score_csv = _write_split(root, "score", DDP_SCORE_IMAGES, False, rng)
-    for name in ("score_cli", "score_zero1", "score_zero2"):
+    serve_images = rng.uniform(size=(N_IMAGES, 32, 32, 1)).astype(np.float32)
+    for name in ("score_cli", "score_zero1", "score_zero2", "score_quant"):
         (root / "output" / name).mkdir(parents=True)
         save_checkpoint(root / "output" / name / "checkpoint.pth", seeded_unet(3).state_dict())
     out = f"--output_dir={root / 'output'}"
@@ -3556,6 +3964,11 @@ def phase_ddp(dev: torch.device, root: Path) -> dict:
             *scoring, f"--model_name={model}", f"--first_n_val={DDP_ZERO_IMAGES}",
             "--batch_size=4", "--num_inference_steps=10", "--inference_skip_factor=3"]}
 
+    quant = {"name": "quant", "kind": "quant", "held": DDP_QUANT_HELD, "argv": [
+        *scoring, "--model_name=score_quant", f"--first_n_val={DDP_QUANT_IMAGES}",
+        f"--batch_size={DDP_QUANT_BATCH}", "--num_inference_steps=10",
+        "--inference_skip_factor=3", "--quantize=int8"]}
+
     launches_spec = [
         (root, "rank1", 1, [train("train", "ddp1", TRAIN_BATCH),
                             train("resume", "ddp1", TRAIN_BATCH, "--n_epochs=3"),
@@ -3565,14 +3978,20 @@ def phase_ddp(dev: torch.device, root: Path) -> dict:
                             train("resume", "ddp2", DDP_RANK_BATCH, "--n_epochs=3"),
                             parity("parity2"), score, zero("score_zero2"),
                             {"name": "grads", "kind": "grads", "wrap": "ddp"}], True),
+        # the quantised scoring run in the shorter of the two gloo launches
         (root, "fsdp2", 2, [train("fsdp", "fsdp2", DDP_RANK_BATCH, "--n_epochs=1",
                                   "--fsdp=1"),
-                            {"name": "grads", "kind": "grads", "wrap": "fsdp"}], True)]
+                            {"name": "grads", "kind": "grads", "wrap": "fsdp"}, quant], True)]
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(launches_spec)) as pool:
+    serve_spec = [(nproc, quantize) for quantize in ("none", "int8") for nproc in (1, 2)]
+    with ThreadPoolExecutor(len(launches_spec) + len(serve_spec)) as pool:
+        served = {key: pool.submit(_serve_launch, top, f"serve{key[0]}_{key[1]}", *key,
+                                   serve_images) for key in serve_spec}
         one, two, fsdp2 = pool.map(lambda spec: _ddp_launch(*spec), launches_spec)
-    secs = {"rank1": one[0], "rank2": two[0], "fsdp2": fsdp2[0]}
+        served = {key: future.result() for key, future in served.items()}
+    secs = {"rank1": one[0], "rank2": two[0], "fsdp2": fsdp2[0],
+            **{f"serve{n}_{q}": rec["seconds"] for (n, q), rec in served.items()}}
     # DDP's reducer warns once when a gradient's strides differ from its
     # bucket view's (a copy of that gradient every step)
     stride_warned = {name: DDP_STRIDE_WARNING in text
@@ -3686,20 +4105,34 @@ def phase_ddp(dev: torch.device, root: Path) -> dict:
     for rec, what in ((r1["zero"], "1 rank"), (a["zero"], "2 ranks"), (b["zero"], "2 ranks")):
         _check_launches(rec["launches"], rec["evals"], f"ddp zero-noise, {what}", bf16=True)
 
-    launches = {}
-    for recs in (one[2], two[2], fsdp2[2]):
-        for rank_recs in recs:
-            for rec in rank_recs.values():
-                for k, v in rec["launches"].items():
-                    launches[k] = launches.get(k, 0) + v
+    quant_summary = _check_ddp_quant(fa["quant"], fb["quant"])
+    serve_summary = _check_serve_sharded(served)
+
+    def summed(records) -> dict:
+        out = {}
+        for rec in records:
+            for k, v in rec.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    paths = {
+        "ddp": summed(rec["launches"] for recs in (one[2], two[2], fsdp2[2])
+                      for rank_recs in recs for name, rec in rank_recs.items()
+                      if name != "quant"),
+        "ddp_quant": summed(rec["quant"]["launches"] for rec in (fa, fb)),
+        "serve_sharded": summed(launches for rec in served.values()
+                                for launches in rec["launches"]),
+    }
+    log(f"ddp: launches a rank, ddp_quant: {[rec['quant']['launches'] for rec in (fa, fb)]}; "
+        f"serve_sharded: { {rec['name']: rec['launches'] for rec in served.values()} }")
     secs["phase"] = time.perf_counter() - t_phase
     log(json.dumps({"ddp": {"seconds": secs, "train_images_per_s": rate,
                             "frozen_epoch_loss": losses[:2], "fsdp_bytes": fsdp_bytes,
                             "zero_noise_worst_rel": worst, "grad_worst_rel": grad_errs,
-                            "stride_warning": stride_warned,
-                            "card": CARD}}))
+                            "stride_warning": stride_warned, "quant": quant_summary,
+                            "serve_sharded": serve_summary, "card": CARD}}))
     log(f"ddp: phase took {secs['phase']:.1f} s")
-    return launches
+    return paths
 
 
 def main() -> int:
@@ -3749,7 +4182,7 @@ def main() -> int:
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     paths = {"score": score, "serve": served, "sample": sampled, "samplers": samplers,
              "simplex": simplex, "quant": quant, "ldm": ldm, "train": train,
-             "train_ldm": train_ldm, **remat, "pipelines": pipelines, "ddp": ddp}
+             "train_ldm": train_ldm, **remat, "pipelines": pipelines, **ddp}
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -3769,6 +4202,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase_ddp's torchrun launches
         sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-rank"]:  # a rank of phase_ddp's serve launches
+        sys.exit(serve_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--quant-run"]:  # phase_quant's scoring interpreter
         sys.exit(quant_run(sys.argv[2]))
     sys.exit(main())

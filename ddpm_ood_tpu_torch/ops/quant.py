@@ -31,6 +31,14 @@ is an integer below 2^31, exact in float64). JAX's ``wconv``
 every device as JAX's is XLA work: the codes dequantised in the compute
 dtype (``dequantize_weight``), then an ordinary convolution.
 
+A scoring batch spread over the ranks of a torchrun launch quantises with
+the global activation absmax, as JAX's GSPMD program does: inside
+``absmax_over_processes`` each ``quant_absmax`` is all-reduced with MAX
+over the process group, on the card's stream under NCCL and through a host
+copy under gloo. ``QuantConv``, ``QuantDense``, ``qconv`` and ``qdot`` call
+it without knowing of ranks; ``--quantize=w8`` has no activation scale and
+no collective.
+
 ``quantize_weight`` is the O(params) weight side, done once per load of the
 weights by the modules (``WeightCache``) where JAX re-quantises per call and
 XLA hoists it out of the sampler's scan.
@@ -38,14 +46,17 @@ XLA hoists it out of the sampler's scan.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh as pmesh
 from . import _kernels
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -237,21 +248,45 @@ def quant_absmax_reference(x: torch.Tensor) -> torch.Tensor:
     return x.float().abs().amax()
 
 
+_OVER_PROCESSES: contextvars.ContextVar = contextvars.ContextVar("absmax_over_processes",
+                                                                 default=False)
+
+
+@contextlib.contextmanager
+def absmax_over_processes() -> Iterator[None]:
+    """For the length of a sharded call (``recon.sweep.ReconProgram``), every
+    ``quant_absmax`` of this thread is the max over the process group: the
+    call's batch is spread over the ranks, and JAX's GSPMD program takes
+    each activation scale over the whole batch. Every rank must then make
+    the same quantised calls in the same order. The identity for one
+    process."""
+    token = _OVER_PROCESSES.set(True)
+    try:
+        yield
+    finally:
+        _OVER_PROCESSES.reset(token)
+
+
 def quant_absmax(x: torch.Tensor) -> torch.Tensor:
     """max |x| of a bf16 or fp32 tensor as a 0-dim fp32 tensor on its device:
     the plain version on the CPU, ``csrc/quant_absmax.cu`` on a CUDA card
-    (counted in ``quant_absmax.launches``), which raises on anything else."""
+    (counted in ``quant_absmax.launches``), which raises on anything else.
+    Inside ``absmax_over_processes`` the result is then all-reduced with MAX
+    over the process group (``parallel.mesh.all_reduce_max_``)."""
     if x.device.type == "cpu":
-        return quant_absmax_reference(x)
-    device, stream = _kernels.cuda_target(x, "quant_absmax")
-    if x.dtype not in _kernels.DTYPE_CODES:
-        raise TypeError(f"quant_absmax: dtype {x.dtype} not in (float32, bfloat16)")
-    if not x.is_contiguous() or x.numel() == 0:
-        raise ValueError("quant_absmax: x must be contiguous and not empty")
-    out = torch.zeros((), dtype=torch.float32, device=x.device)
-    _kernels.call("ddpm_quant_absmax", x.data_ptr(), x.numel(), _kernels.DTYPE_CODES[x.dtype],
-                  out.data_ptr(), device, stream)
-    quant_absmax.launches += 1
+        out = quant_absmax_reference(x)
+    else:
+        device, stream = _kernels.cuda_target(x, "quant_absmax")
+        if x.dtype not in _kernels.DTYPE_CODES:
+            raise TypeError(f"quant_absmax: dtype {x.dtype} not in (float32, bfloat16)")
+        if not x.is_contiguous() or x.numel() == 0:
+            raise ValueError("quant_absmax: x must be contiguous and not empty")
+        out = torch.zeros((), dtype=torch.float32, device=x.device)
+        _kernels.call("ddpm_quant_absmax", x.data_ptr(), x.numel(),
+                      _kernels.DTYPE_CODES[x.dtype], out.data_ptr(), device, stream)
+        quant_absmax.launches += 1
+    if _OVER_PROCESSES.get():
+        pmesh.all_reduce_max_(out)
     return out
 
 

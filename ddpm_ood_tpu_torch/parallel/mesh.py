@@ -29,7 +29,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -179,12 +179,69 @@ def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
 
 
 def any_process(flag: bool, device: torch.device) -> bool:
-    """True when `flag` is true on any process."""
+    """True when `flag` is true on any process (`device`: this process's)."""
     if process_count() == 1:
         return bool(flag)
-    t = torch.tensor([1.0 if flag else 0.0], device=device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.item())
+    return bool(all_reduce_max_(torch.tensor([1.0 if flag else 0.0], device=device)).item())
+
+
+def all_processes(flag: bool, device: torch.device) -> bool:
+    """True when `flag` is true on every process."""
+    return not any_process(not flag, device)
+
+
+def _backend_copy(t: torch.Tensor) -> torch.Tensor:
+    """`t` as the group's backend takes it: a CUDA tensor under gloo as a
+    host copy (which waits for the card), else `t` itself (NCCL works on
+    the card's stream, with no host sync)."""
+    if t.device.type == "cuda" and dist.get_backend() != "nccl":
+        return t.cpu()
+    return t
+
+
+def _through_host(t: torch.Tensor, op) -> torch.Tensor:
+    """``op(tensor)`` on `t`, in place, through ``_backend_copy``."""
+    x = _backend_copy(t)
+    op(x)
+    return t if x is t else t.copy_(x)
+
+
+def all_reduce_max_(t: torch.Tensor) -> torch.Tensor:
+    """In place, the elementwise max over processes; a no-op for one."""
+    if process_count() > 1:
+        _through_host(t, lambda x: dist.all_reduce(x, op=dist.ReduceOp.MAX))
+    return t
+
+
+def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """In place, rank `src`'s `t` on every process; a no-op for one."""
+    if process_count() > 1:
+        _through_host(t, lambda x: dist.broadcast(x, src))
+    return t
+
+
+def shard_rows(batch, world: Optional[int] = None):
+    """This rank's rows of a global batch (a numpy array, or a tensor that
+    `world` divides): ``shard_batch``'s wrap-pad up to a multiple of the
+    `world` processes (default: the group's), then rank r's contiguous rows
+    [r*b, (r+1)*b); the whole batch for one process."""
+    world = process_count() if world is None else int(world)
+    if len(batch) % world:
+        batch = wrap_pad(batch, world)
+    b = len(batch) // world
+    return batch[process_index() * b:(process_index() + 1) * b]
+
+
+def all_gather_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The global tensor on every process: each process's `t` (all of one
+    shape) joined along `dim` in rank order; `t` itself for one."""
+    world = process_count()
+    if world == 1:
+        return t
+    x = _backend_copy(t.contiguous())
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    return torch.cat(parts, dim=dim).to(t.device)
 
 
 def local_multiple(data_size: int, procs: int) -> int:

@@ -241,7 +241,7 @@ def main(argv=None) -> dict:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
-    refuse_unported_flags(args)  # --quantize under more than one process
+    refuse_unported_flags(args)  # the scoring CLI's
     refuse_multi_process("the quality gate")
     device = resolve_device(args.device)
 

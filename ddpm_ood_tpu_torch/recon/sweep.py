@@ -39,6 +39,14 @@ noise is double-buffered as in the JAX program: after each batch's draw one
 worker thread starts the next batch's at the same shape, and a batch whose
 shape differs consumes and discards that draw before making its own, so
 the draws reach a global RNG in the order of a run without prefetch.
+
+Several processes (torchrun, ``parallel/mesh.py``): a ``sharded`` program's
+calls are made on every rank together, each on its part of the batch, and
+each quantised call takes its activation absmax over the process group, as
+JAX's program over a sharded batch does. A call with ``global_batch`` (the
+sharded service) is JAX's ``out_mesh`` call: each rank holds its rows of one
+global batch, draws the noise of the whole batch and keeps its rows, and
+gets every rank's scores back.
 """
 
 from __future__ import annotations
@@ -60,7 +68,9 @@ from ..diffusion.plms import (plms_init_state, plms_reference_exact_sweep, plms_
                               pndm_start_points, pndm_timesteps)
 from ..diffusion.schedules import NoiseSchedule, add_noise, lanes
 from ..losses.lpips import PerceptualLoss
+from ..ops.quant import absmax_over_processes
 from ..ops.ssim import ssim_distance
+from ..parallel import mesh as pmesh
 from ..utils.padding import pad_torch_style, unpad_torch_style
 
 # model_fn(x (N, C, *spatial), t (N,) int) -> fp32 (N, C, *spatial)
@@ -257,6 +267,11 @@ class ReconProgram:
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     latent_pad: Optional[Tuple[int, ...]] = None
     latent_sample_shape: Optional[Tuple[int, ...]] = None
+    # every rank of the process group makes each call together, on its own
+    # part of the batch (the scoring CLI's partitions, a sharded service's
+    # rows): each quantised call's activation absmax is then the max over
+    # the group (ops.quant.absmax_over_processes), JAX's out_mesh program
+    sharded: bool = False
 
     def __post_init__(self):
         if self.sampler in ("ddim", "dpm"):
@@ -416,18 +431,42 @@ class ReconProgram:
                                          t_flat).view(k, b)
 
     def __call__(self, images, generator: Optional[torch.Generator] = None,
-                 noise_batch: Optional[int] = None):
+                 noise_batch: Optional[int] = None, global_batch: Optional[int] = None):
         """`noise_batch`: the batch size host noise is drawn at (the JAX CLI
         wrap-pads a ragged last batch to its first batch's size before the
-        draw); None draws at this batch's size."""
+        draw); None draws at this batch's size.
+
+        `global_batch` (a sharded service's call, made on every rank): the
+        images are this rank's rows [r*b, (r+1)*b) of a batch of that many
+        spread over the process group. The noise is one draw at the global
+        batch, of which this rank takes its rows (so every rank's generator
+        must be seeded alike), and the scores come back gathered, (K,
+        global_batch) on every rank. The preview and the error maps stay
+        this rank's."""
+        scope = absmax_over_processes() if self.sharded else contextlib.nullcontext()
+        with scope:
+            out = self._call(images, generator, noise_batch, global_batch)
+        if global_batch is None:
+            return out
+        return out[:1] + tuple(pmesh.all_gather_rows(o, dim=1) for o in out[1:])
+
+    def _call(self, images, generator, noise_batch, global_batch):
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         autocast = (torch.autocast(self.device.type, dtype=self.autocast_dtype)
                     if self.autocast_dtype is not None else contextlib.nullcontext())
         with torch.no_grad(), autocast:
             x = self._encode(images)
+        shape, rows = (len(self.t_starts),) + tuple(x.shape), slice(None)
+        if global_batch is not None:
+            b, world = x.shape[0], pmesh.process_count()
+            if b * world != int(global_batch):
+                raise ValueError(f"{b} rows a rank over {world} processes is not a global batch "
+                                 f"of {global_batch}")
+            shape = shape[:1] + (int(global_batch),) + shape[2:]
+            rows = slice(pmesh.process_index() * b, (pmesh.process_index() + 1) * b)
         # plms_ref draws its host noise at once, as the JAX program does
-        noise_full = self._noise((len(self.t_starts),) + tuple(x.shape), generator, noise_batch,
-                                 prefetch=self.sampler != "plms_ref")
+        noise_full = self._noise(shape, generator, noise_batch,
+                                 prefetch=self.sampler != "plms_ref")[:, rows].contiguous()
         if self.sampler == "plms_ref":
             with torch.no_grad(), autocast:
                 recon = plms_reference_exact_sweep(

@@ -10,8 +10,9 @@ It takes the JAX package's ``reconstruct.py`` flags
 process scores its partition of every dataset on its card, and rank 0
 merges the processes' CSVs. ``--quantize=int8|w8|mixed`` scores with the
 quantised UNet (``ops/quant.py``; int8 on the card's s8 kernels, the plain
-versions with ``--device=cpu``), in one process only. Flags the port does
-not serve raise NotImplementedError naming the flag.
+versions with ``--device=cpu``); under torchrun each int8 activation scale
+is taken over every rank's images of that UNet call. ``--aot_cache``
+(TPU-only) raises NotImplementedError naming the flag.
 """
 
 from __future__ import annotations

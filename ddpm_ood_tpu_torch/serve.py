@@ -41,10 +41,19 @@ It takes the flags of the JAX package's ``scripts/serve.py`` plus
 serves the quantised UNet (int8, w8 or mixed; a request batched with others
 is quantised with them, as in JAX); ``--aot_cache`` (TPU-only) raises
 NotImplementedError naming the flag. A hot reload re-reads the weights in
-place, and the quantised layers re-quantise them at their next call. The
-service runs one process: a launch of more than one (``WORLD_SIZE`` > 1)
-raises NotImplementedError, since the JAX service's ``shard_fn``, which
-shards a request batch over one process's devices, is not ported.
+place, and the quantised layers re-quantise them at their next call.
+
+Under torchrun the service is sharded, the twin of the JAX service's
+``shard_fn`` over a data mesh (``scripts/serve.py``): each request batch is
+split over the ranks, one card a rank (NCCL) or every rank on one card
+(``DDPM_OOD_TORCH_SHARED_CARD=1``, gloo; ``--device=cpu``: gloo)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \\
+        -m ddpm_ood_tpu_torch.serve <the flags above>
+
+Rank 0 serves HTTP; the others follow it (``ScoringService.follow``).
+``--quantize=int8`` takes each activation scale over the whole batch, every
+rank's rows, as JAX's sharded program does.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ import numpy as np
 import torch
 
 from .ood.score import Table, dedup, read_results_csv
+from .parallel import mesh as pmesh
 from .recon.sweep import ReconProgram
 
 log = logging.getLogger(__name__)
@@ -102,6 +112,7 @@ def build_recon_program(trainer, args, perceptual_fn=None, simplex_noise_fn=None
         # the loader resizes to image_size, so the latent shape is known
         latent_sample_shape=trainer._latent_sample_shape() if trainer.image_size else None,
         host_noise_fn=host_noise_fn, simplex_noise_fn=simplex_noise_fn,
+        sharded=pmesh.process_count() > 1,
     )
 
 
@@ -124,14 +135,19 @@ def warmup_program(program: ReconProgram, args, batch_size: int) -> float:
     library's build or load, the CUDA context and cuDNN's heuristics. It runs
     on a copy of the program with Gaussian noise from a throwaway generator,
     so neither the service's generator nor a host noise function moves, and
-    the program's own counters stay those of served sweeps. Returns the
-    seconds it took, or -1.0 when the geometry cannot be derived from args."""
-    example = serving_example(args, batch_size)
+    the program's own counters stay those of served sweeps. A sharded
+    program's sweep runs on every rank at once, each on its rows of the
+    service's global batch, as a request's does. Returns the seconds it
+    took, or -1.0 when the geometry cannot be derived from args."""
+    world = pmesh.process_count() if program.sharded else 1
+    example = serving_example(args, -(-int(batch_size) // world) * world)
     if example is None:
         return -1.0
     warm = dataclasses.replace(program, host_noise_fn=None, simplex_noise_fn=None)
+    kw = {"global_batch": len(example)} if world > 1 else {}
     t0 = time.perf_counter()
-    _, *scores = warm(example, torch.Generator(device=program.device).manual_seed(0))
+    _, *scores = warm(pmesh.shard_rows(example, world),
+                      torch.Generator(device=program.device).manual_seed(0), **kw)
     for s in scores:
         s.cpu()  # waits for the device
     return time.perf_counter() - t0
@@ -161,6 +177,16 @@ def _mean_by(keys: np.ndarray, values: np.ndarray) -> np.ndarray:
         return np.where(counts > 0, sums / np.maximum(counts, 1), np.nan)
 
 
+# a sharded service's rank 0 broadcasts a header of HEADER_LEN int64s, (op,
+# ndim, *shape), before each collective step of the other ranks
+OP_STOP, OP_SCORE, OP_RELOAD, OP_KEEPALIVE = range(4)
+HEADER_LEN = 8
+# an idle sharded service's rank 0 broadcasts OP_KEEPALIVE about this often:
+# a rank waiting in a collective longer than the group's timeout
+# (parallel/mesh.py, 10 minutes) would fail
+KEEPALIVE_SECONDS = 60.0
+
+
 class ScoringService:
     """Score images against a trained run's validation statistics.
 
@@ -168,12 +194,30 @@ class ScoringService:
     wrap-padded up to it); val_stats: the port's table of a deduplicated
     ``results_val.csv`` (``ood.score.read_results_csv``), whose per-t mean
     and std of mse and perceptual_difference (and of elbo / ssim_distance
-    when both the program and the table have them) normalise the scores."""
+    when both the program and the table have them) normalise the scores;
+    image_shape: the (*spatial, C) of one image the service scores (a
+    request of another shape raises ValueError, the HTTP layer's 400);
+    model: the module whose weights a sharded service's reload sends from
+    rank 0 to the other ranks.
+
+    A ``sharded`` program in a group of W processes (torchrun) makes the
+    JAX service's ``shard_fn``: every rank builds this service; rank 0
+    scores, wrap-padding each request to the batch and then up to a multiple
+    of W (JAX's ``shard_batch``), broadcasts a header and the padded batch,
+    sweeps its own rows and takes the gathered scores; the other ranks run
+    ``follow()``. Every rank's generator is seeded alike and the sweep draws
+    the global batch's noise, so the scores are those of one process. Rank 0
+    refuses a request whose image shape is not ``image_shape`` before the
+    other ranks see it, and a reload copies the weights rank 0 read into
+    every rank's `model`, so the ranks never serve two checkpoints."""
 
     def __init__(self, program: ReconProgram, val_stats: Table, batch_size: int,
                  model_name: str = "model", reload_fn=None, flag_fpr: float = 0.0,
-                 drift_window: int = 256):
+                 drift_window: int = 256, image_shape: Optional[Tuple[int, ...]] = None,
+                 model: Optional[torch.nn.Module] = None):
         self.program = program
+        self.image_shape = None if image_shape is None else tuple(int(d) for d in image_shape)
+        self.model = model
         # POST /reload: a callable that copies freshly read weights into the
         # program's model in place and returns a description; the program,
         # its model_fn and the kernel library stay as they are
@@ -247,16 +291,122 @@ class ScoringService:
         self.drift_window = int(drift_window)
         self._drift_ring: "collections.deque[float]" = collections.deque(
             maxlen=self.drift_window)
+        self.world = pmesh.process_count() if program.sharded else 1
+        self.rank = pmesh.process_index()
+        if self.world > 1 and self.image_shape is None:
+            raise ValueError("a sharded service needs image_shape, to refuse a request of "
+                             "another shape before the other ranks sweep it")
+        if self.world > 1 and reload_fn is not None and model is None:
+            raise ValueError("a sharded service with a reload hook needs the model whose "
+                             "weights rank 0 sends the other ranks")
+        self._stopped = threading.Event()
+        self._keepalive = None
+        self._last_lead = time.monotonic()
+        if self.world > 1 and self.rank == 0:
+            if self.batch_size % self.world:
+                print(f"serve: batch_size {self.batch_size} not divisible by {self.world} "
+                      "processes — batches wrap-pad up to the next multiple (one-time; scores "
+                      "are unaffected)", flush=True)
+            self._keepalive = threading.Thread(target=self._keep_alive,
+                                               args=(KEEPALIVE_SECONDS,), daemon=True)
+            self._keepalive.start()
 
     def reload(self) -> str:
         """Swap in freshly read checkpoint weights under the sweep lock, so no
-        sweep sees half of them."""
+        sweep sees half of them; a sharded service's other ranks then take
+        rank 0's weights (a checkpoint written meanwhile reaches no rank)."""
         if self.reload_fn is None:
             raise RuntimeError("service was started without a reload hook")
         with self._lock:
             desc = self.reload_fn()
+            if self.world > 1:
+                self._lead(OP_RELOAD)
+                self._share_weights()
             self.stats["reloads"] += 1
         return str(desc)
+
+    def _checked(self, images) -> np.ndarray:
+        """The request as float32, its size and image shape checked."""
+        images = np.asarray(images, np.float32)
+        if images.shape[0] > self.batch_size:
+            raise ValueError(f"batch {images.shape[0]} > service batch_size {self.batch_size}")
+        if self.image_shape is not None and images.shape[1:] != self.image_shape:
+            raise ValueError(f"images of shape {images.shape[1:]}: the service scores "
+                             f"{self.image_shape}")
+        return images
+
+    # ------------------------------------------ sharded over processes --
+    def _lead(self, op: int, batch: Optional[np.ndarray] = None) -> None:
+        """Rank 0, under the sweep lock: the header of `op` (and `batch`)
+        to every rank."""
+        header = torch.zeros(HEADER_LEN, dtype=torch.int64)
+        header[0] = op
+        if batch is not None:
+            header[1] = batch.ndim
+            header[2:2 + batch.ndim] = torch.tensor(batch.shape)
+        pmesh.broadcast_(header.to(self.program.device))
+        if batch is not None:
+            pmesh.broadcast_(torch.from_numpy(np.ascontiguousarray(batch)).to(self.program.device))
+        self._last_lead = time.monotonic()
+
+    def _share_weights(self) -> None:
+        """Every rank, at a reload: rank 0's parameters and buffers copied
+        into this rank's model (in place, so quantised layers re-quantise)."""
+        with torch.no_grad():
+            for t in self.model.state_dict().values():
+                t.copy_(pmesh.broadcast_(t.clone(memory_format=torch.contiguous_format)))
+
+    def _keep_alive(self, every: float) -> None:
+        while not self._stopped.wait(every):
+            with self._lock:
+                if not self._stopped.is_set() and time.monotonic() - self._last_lead >= every:
+                    self._lead(OP_KEEPALIVE)
+
+    def _sweep(self, pad: np.ndarray) -> tuple:
+        """The program on the padded request, under the sweep lock: on one
+        process directly; sharded, this rank's rows of the batch wrap-padded
+        to a multiple of the ranks, the gathered scores back."""
+        if self.world == 1:
+            return self.program(pad, self.generator)
+        pad = pmesh.wrap_pad(pad, self.world)
+        self._lead(OP_SCORE, pad)
+        return self.program(pmesh.shard_rows(pad, self.world), self.generator,
+                            global_batch=len(pad))
+
+    def follow(self) -> None:
+        """A sharded service's rank other than 0: sweep its rows of each
+        batch rank 0 broadcasts, reload when rank 0 reloads, and return at
+        rank 0's stop (``stop()``)."""
+        while True:
+            header = pmesh.broadcast_(torch.zeros(HEADER_LEN, dtype=torch.int64,
+                                                  device=self.program.device)).cpu()
+            op = int(header[0])
+            if op == OP_STOP:
+                return
+            if op == OP_RELOAD:
+                self._share_weights()
+                self.stats["reloads"] += 1
+            elif op == OP_SCORE:
+                shape = tuple(header[2:2 + int(header[1])].tolist())
+                pad = pmesh.broadcast_(torch.empty(shape, dtype=torch.float32,
+                                                   device=self.program.device))
+                t0 = time.perf_counter()
+                _, *scores = self.program(pmesh.shard_rows(pad, self.world), self.generator,
+                                          global_batch=shape[0])
+                scores[0].cpu()  # waits for the device
+                self.stats["sweeps"] += 1
+                self.stats["device_seconds"] += time.perf_counter() - t0
+
+    def stop(self) -> None:
+        """Rank 0 of a sharded service, once its last request is answered:
+        every other rank leaves ``follow()``. Idempotent; a no-op elsewhere."""
+        self._stopped.set()
+        if self._keepalive is not None:
+            self._keepalive.join()
+        with self._lock:
+            if self.world > 1 and self.rank == 0 and self._keepalive is not None:
+                self._lead(OP_STOP)
+                self._keepalive = None
 
     @classmethod
     def from_val_csv(cls, program, val_csv: str | Path, batch_size: int,
@@ -269,16 +419,14 @@ class ScoringService:
         over start points, the reference's per-image aggregation), the
         optional z_score_elbo / z_score_ssim and decisions, and the raw per-t
         values."""
-        images = np.asarray(images, np.float32)
+        images = self._checked(images)
         b = images.shape[0]
         if b == 0:
             return []
-        if b > self.batch_size:
-            raise ValueError(f"batch {b} > service batch_size {self.batch_size}")
         pad = np.take(images, np.arange(self.batch_size) % b, axis=0)
         with self._lock:
             t0 = time.perf_counter()
-            t_starts, *scores = self.program(pad, self.generator)
+            t_starts, *scores = self._sweep(pad)
             # on the host inside the lock: the clock then covers the sweep,
             # not only its enqueue
             scores = [s.cpu().numpy()[:, :b] for s in scores]
@@ -367,7 +515,7 @@ class BatchingScoringService:
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
-    def __getattr__(self, name):  # model_name, batch_size, program, caps, ...
+    def __getattr__(self, name):  # model_name, batch_size, program, caps, stop, ...
         return getattr(self.inner, name)
 
     def close(self) -> None:
@@ -377,12 +525,9 @@ class BatchingScoringService:
         self._worker.join(timeout=10)
 
     def score(self, images: np.ndarray) -> list:
-        images = np.asarray(images, np.float32)
-        b = images.shape[0]
-        if b == 0:
+        images = self.inner._checked(images)  # a refused request joins no sweep
+        if images.shape[0] == 0:
             return []
-        if b > self.inner.batch_size:
-            raise ValueError(f"batch {b} > service batch_size {self.inner.batch_size}")
         req = {"images": images, "event": threading.Event(), "result": None, "error": None}
         with self._cv:
             if self._closed:
@@ -435,6 +580,7 @@ class BatchingScoringService:
 def collect_stats(service: ScoringService) -> Dict[str, object]:
     """The /statz payload: ops counters, derived rates and drift indicators."""
     s = dict(service.stats)
+    s["world_size"] = service.world
     sweeps = max(int(s["sweeps"]), 1)
     s["mean_sweep_seconds"] = s["device_seconds"] / sweeps
     s["coalescing_ratio"] = s["requests"] / sweeps if s["requests"] else 0.0
@@ -520,6 +666,7 @@ def make_handler(service: ScoringService, auth_token: Optional[str] = None):
                     "model": service.model_name,
                     "batch_size": service.batch_size,
                     "t_starts": [int(t) for t in service.program.t_starts],
+                    "world_size": service.world,
                 })
             elif self.path == "/statz":
                 self._json(200, collect_stats(service))
@@ -613,19 +760,21 @@ def serve_forever(service: ScoringService, host: str = "0.0.0.0", port: int = 87
     server.server_close()
 
 
-def build_service(args):
+def build_service(args, device: Optional[torch.device] = None):
     """The CLI's service, before it listens: the trainer's model from the
     run's checkpoint, LPIPS, the program, the validation table, the reload
     hook and a warmup sweep; a BatchingScoringService with
-    ``--batch_window_ms``. Raises FileNotFoundError without a checkpoint."""
+    ``--batch_window_ms``. Under torchrun the process joins the group (if it
+    has not) and the service is sharded over its ranks; every rank builds
+    it. Raises FileNotFoundError without a checkpoint."""
     from .losses.lpips import PerceptualLoss
-    from .trainers.base import BaseTrainer, refuse_multi_process, resolve_device
+    from .trainers.base import BaseTrainer, resolve_device
     from .trainers.reconstruct import refuse_unported_flags  # the scoring CLI's refusals
     from .utils.checkpoint import find_checkpoint, missing_checkpoint_error
 
     refuse_unported_flags(args)
-    refuse_multi_process("the scoring service")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if device is None else device
+    pmesh.initialize_distributed(device)
     run_dir = Path(args.output_dir) / args.model_name
     epoch = int(args.ddpm_checkpoint_epoch) if args.ddpm_checkpoint_epoch else None
     if find_checkpoint(run_dir, epoch) is None:  # before the model is built
@@ -642,31 +791,58 @@ def build_service(args):
         # into the model the program calls
         return str(trainer.reload_params(epoch))
 
+    example = serving_example(args, 1)
     service = ScoringService(
         program, dedup(read_results_csv(val_csv)), args.batch_size, model_name=args.model_name,
-        reload_fn=reload_fn, flag_fpr=args.flag_fpr, drift_window=args.drift_window)
+        reload_fn=reload_fn, flag_fpr=args.flag_fpr, drift_window=args.drift_window,
+        image_shape=None if example is None else example.shape[1:], model=trainer.unet)
     if service.z_thresholds:
         print(f"decision thresholds (flag_fpr={args.flag_fpr}): {service.z_thresholds}",
               flush=True)
     service.warmup_seconds = warmup_program(program, args, args.batch_size)
     if service.warmup_seconds >= 0:
         print(f"warm: ran {len(program._groups)} lane groups in "
-              f"{service.warmup_seconds:.1f} s", flush=True)
+              f"{service.warmup_seconds:.1f} s"
+              + (f" (rank {service.rank} of {service.world})" if service.world > 1 else ""),
+              flush=True)
     if args.batch_window_ms > 0:
         return BatchingScoringService(service, args.batch_window_ms)
     return service
 
 
 def main(argv=None) -> None:
+    """One process, or every rank of a torchrun launch: rank 0 binds the
+    HTTP server and, once SIGTERM has drained it, stops the other ranks,
+    which follow it until then (the SIGTERM torchrun forwards to them is
+    ignored: a rank must not leave a collective halfway)."""
+    import signal
+
     from .config import parse_args_serve
+    from .trainers.base import resolve_device
 
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args_serve(argv)
-    service = build_service(args)
-    if args.auth_token:
-        print("bearer-token auth enabled (all endpoints except GET /healthz)", flush=True)
-    serve_forever(service, args.host, args.port, auth_token=args.auth_token)
+    device = resolve_device(args.device)
+    with pmesh.distributed(device):
+        service = build_service(args, device)
+        if service.rank != 0:
+            def _wait_for_rank0(signum, frame):
+                print(f"rank {service.rank}: signal {signum}: waiting for rank 0 to stop",
+                      flush=True)
+
+            signal.signal(signal.SIGTERM, _wait_for_rank0)
+            signal.signal(signal.SIGINT, _wait_for_rank0)
+            service.follow()
+            return
+        if args.auth_token:
+            print("bearer-token auth enabled (all endpoints except GET /healthz)", flush=True)
+        try:
+            serve_forever(service, args.host, args.port, auth_token=args.auth_token)
+        finally:
+            if isinstance(service, BatchingScoringService):
+                service.close()
+            service.stop()
 
 
 if __name__ == "__main__":

@@ -82,7 +82,8 @@ def refuse_flags(args, refused: Sequence[Tuple[str, bool, str]]) -> None:
 
 def refuse_multi_process(what: str) -> None:
     """Raise NotImplementedError under a launch of more than one process:
-    `what` runs one process (training and scoring run under torchrun)."""
+    `what` runs one process (training, scoring and the service run under
+    torchrun)."""
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     if world > 1:
         raise NotImplementedError(

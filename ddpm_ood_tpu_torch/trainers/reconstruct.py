@@ -34,8 +34,9 @@ takes no gradient. ``DDPM_OOD_TPU_CRASH_AFTER_BATCHES=N`` SIGKILLs the
 process after N batches are persisted, to test the resume.
 ``--quantize=int8|w8|mixed`` scores with the quantised UNet
 (``models/unet.py``, ``ops/quant.py``); each activation scale is taken over
-a whole UNet call (every lane and image of a group), as in JAX, so it is
-refused under more than one process.
+a whole UNet call (every lane and image of a group), as in JAX, and under
+torchrun over every rank's images of that call (the program is
+``sharded``: JAX's global batch is the processes' batches joined).
 
 Under torchrun (``parallel/mesh.py``) each process scores its partition of
 every dataset (``partition_for_process``: equal partitions, wrap-padded) with
@@ -44,7 +45,10 @@ its own noise stream (``NOISE_SEED + rank``), appends to its own partial CSV
 finishes it as ``.results_<name>.shard<rank>.csv``, and after a barrier rank 0
 merges the shards, in rank order, into ``results_<name>.csv``, as the JAX
 package's ``_CsvSink.finalize`` does. Previews and the profiler trace are
-rank 0's; the latent path runs on each process unchanged.
+rank 0's; the latent path runs on each process unchanged. The ranks' quantised
+calls meet in lockstep: equal partitions give every rank the same batches,
+and ``--resume=1`` skips a batch only where every rank's partial holds it
+whole (a rank that rescores a batch it held keeps one row of each).
 
 The scoring program is assembled by ``serve.build_recon_program``, the
 one place the online service assembles its own, so that offline scoring and
@@ -89,17 +93,9 @@ CRASH_ENV = "DDPM_OOD_TPU_CRASH_AFTER_BATCHES"  # fault injection for the resume
 
 
 def refuse_unported_flags(args) -> None:
-    """Raise NotImplementedError naming the first flag this slice does not
-    serve: ``--aot_cache``, and ``--quantize`` other than none under more
-    than one process (``WORLD_SIZE`` > 1). JAX takes one activation absmax
-    over the whole sharded batch; a rank here sees only its partition, so its
-    scales, and so its scores, would differ."""
-    quantized = getattr(args, "quantize", "none") not in (None, "none")
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    """Raise NotImplementedError naming ``--aot_cache`` (TPU-only) when it
+    is set."""
     refuse_flags(args, [
-        ("--quantize", quantized and world > 1,
-         f"quantised scoring over more than one process, WORLD_SIZE={world}: the activation "
-         "scales would be each rank's, where JAX takes them over the global batch"),
         ("--aot_cache", bool(getattr(args, "aot_cache", None)), "a TPU-only feature"),
     ])
 
@@ -328,10 +324,17 @@ class Reconstruct(BaseTrainer):
         names = ("mse", "perceptual_difference") + self.columns[len(COLUMNS):]
         results: List[dict] = []
         n_skipped, first_b, preview_saved = 0, None, False
+        # under torchrun a rank skips with the others or not at all: a
+        # quantised forward all-reduces its scales, so the ranks' calls pair up
+        # batch by batch
+        resuming = bool(getattr(self.args, "resume", 0)) and sink is not None
         for batch_idx, batch in enumerate(loader):
             images = np.moveaxis(batch["image"], 1, -1)  # (B, *spatial, C)
-            if sink is not None and sink.resumed_rows and \
-                    len(sink.done(batch["filename"], len(program.t_starts))) == len(images):
+            held = bool(sink is not None and sink.resumed_rows and len(
+                sink.done(batch["filename"], len(program.t_starts))) == len(images))
+            if resuming and pmesh.process_count() > 1:
+                held = pmesh.all_processes(held, self.device)
+            if held:
                 program.skip(images, generator)  # the noise it would have drawn
                 n_skipped += len(images)
                 continue

@@ -31,8 +31,11 @@
 - ``serve`` builds its service, and ``bench_serve`` its program, in every
   mode; ``quality_check --quantize=int8`` scores the extra
   ``<sampler>+int8`` variant under JAX's label; every mode passes the
-  scoring CLI's refusals in one process, and ``--quantize`` under
-  ``WORLD_SIZE=2`` raises NotImplementedError naming it.
+  scoring CLI's refusals, and ``--quantize`` under a ``WORLD_SIZE=2``
+  without torchrun's rendezvous environment raises a named RuntimeError.
+  Under torchrun, with each absmax over every rank:
+  tests/test_torch_ddp_quant.py, test_torch_sharded_sweep.py and
+  test_torch_serve_sharded.py.
 - A hot reload under int8: the reloaded service scores exactly what a fresh
   service on the new weights scores, given the same noise: the quantised
   layers hold no stale weight codes.
@@ -307,9 +310,13 @@ def test_every_mode_passes_the_scoring_refusals_in_one_process(mode, monkeypatch
 
 
 def test_quantize_over_more_than_one_process_raises(tmp_path, monkeypatch):
-    """JAX's absmax spans the whole sharded batch; a rank's would not."""
+    """--quantize under torchrun takes each absmax over every rank
+    (tests/test_torch_ddp_quant.py); a WORLD_SIZE without torchrun's
+    rendezvous environment raises a named error before any work."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="--quantize=int8 .*WORLD_SIZE=2"):
+    for key in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2.*rendezvous.*RANK"):
         cli.main(["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m",
                   "--quantize=int8"])
 

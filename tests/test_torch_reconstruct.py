@@ -288,7 +288,7 @@ def test_csv_sink_output_equals_pandas_to_csv(tmp_path):
     assert path.read_text() == (tmp_path / "pandas.csv").read_text()
 
 
-REFUSED = [("--quantize=int8", "--quantize"), ("--aot_cache=/tmp/aot", "--aot_cache")]
+REFUSED = [("--aot_cache=/tmp/aot", "--aot_cache")]
 
 
 @pytest.mark.parametrize("flag", ["--simplex_noise=1", "--profile_dir=prof", "--resume=1",
@@ -329,11 +329,9 @@ def test_latent_diffusion_flags_are_served(flag):
 
 @pytest.mark.parametrize("flag,name", REFUSED)
 def test_unported_flags_raise(tmp_path, monkeypatch, flag, name):
-    """--aot_cache always; --quantize in more than one process, where each
-    rank would take its own activation scales (tests/test_torch_quant_cli.py
-    scores it in one)."""
-    if name == "--quantize":
-        monkeypatch.setenv("WORLD_SIZE", "2")
+    """--aot_cache (TPU-only). --quantize is scored in one process
+    (tests/test_torch_quant_cli.py) and under torchrun, each absmax over
+    every rank (tests/test_torch_ddp_quant.py)."""
     argv = ["--device=cpu", f"--output_dir={tmp_path}", "--model_name=m", flag]
     with pytest.raises(NotImplementedError, match=name):
         cli.main(argv)

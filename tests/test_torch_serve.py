@@ -27,8 +27,9 @@ window, bearer auth, /metricz and a connection burst. The cases that only
 exercise the HTTP layer and the batching run a program whose model is a
 linear stand-in, so that each of their sweeps takes milliseconds. The two
 shard cases of the JAX file (test_sharded_service_matches_unsharded and
-test_warmup_with_shard_fn_precompiles_sharded_key) are not ported: the
-port's service runs on one device (ROADMAP queue 1 item 4).
+test_warmup_with_shard_fn_precompiles_sharded_key) have their twins in
+tests/test_torch_serve_sharded.py: the port's service sharded over the
+ranks of a torchrun launch.
 """
 
 import argparse

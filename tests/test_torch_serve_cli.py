@@ -14,9 +14,11 @@ POST /score equals the library service built in this process from the same
 flags (both first sweeps draw from a fresh generator; rtol 1e-5 for the
 two processes' CPU thread counts); POST /reload picks up a newer
 checkpoint and the scores change; SIGTERM while a POST /score is in flight
-completes that response with 200 and exits 0. The refused flags raise
+completes that response with 200 and exits 0. --aot_cache raises
 NotImplementedError naming the flag, a missing checkpoint
-FileNotFoundError, and --device=cuda without a card RuntimeError.
+FileNotFoundError, --device=cuda without a card RuntimeError, and a
+WORLD_SIZE above 1 without torchrun's rendezvous environment RuntimeError
+(the service under torchrun: tests/test_torch_serve_sharded.py).
 """
 
 import argparse
@@ -211,20 +213,23 @@ def test_serve_cli_end_to_end(run):
             proc.kill()
 
 
-@pytest.mark.parametrize("flag,name", [("--quantize=int8", "--quantize"),
-                                       ("--aot_cache=sweep.aot", "--aot_cache")])
-def test_unported_flags_raise(run, flag, name, monkeypatch):
-    """--aot_cache always; --quantize in more than one process
-    (tests/test_torch_quant_cli.py serves it in one)."""
-    if name == "--quantize":
-        monkeypatch.setenv("WORLD_SIZE", "2")
+@pytest.mark.parametrize("flag,name", [("--aot_cache=sweep.aot", "--aot_cache")])
+def test_unported_flags_raise(run, flag, name):
+    """--aot_cache (TPU-only). --quantize is served in one process
+    (tests/test_torch_quant_cli.py) and in several
+    (tests/test_torch_serve_sharded.py)."""
     with pytest.raises(NotImplementedError, match=name):
         serve.main(run + [flag])
 
 
 def test_more_than_one_process_raises(run, monkeypatch):
+    """More than one process is served under torchrun
+    (tests/test_torch_serve_sharded.py); a WORLD_SIZE without torchrun's
+    rendezvous environment raises a named error before any work."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    for key in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2.*rendezvous.*RANK"):
         serve.main(run)
 
 

@@ -32,6 +32,21 @@ mode and writes what the parent test compares to ``<out_dir>/rank<r>.pt``
               ddpm_ood_tpu_torch.<module> <argv>`` runs each: <in> is a JSON
               list of [module, argv] pairs. A lone CLI makes the process
               group itself; a list shares one that the worker makes.
+  sharded     sharded calls on this rank's half of 16 images: the PLMS sweep
+              of a linear stand-in, ``ReconProgram`` with ``score_elbo``,
+              and the int8 tiny UNet's program (each quantised call's absmax
+              recorded), then the same with every call held to JAX's input
+              (``TieFeed``). The parent writes the int8 weights and JAX's
+              inputs to <in>'s ``state`` and ``sites`` paths while the ranks
+              run.
+  serve       sharded ``ScoringService``s of the tiny UNet: host noise,
+              generator noise with and without a warmup, a batch the ranks
+              do not divide, int8, and a hot reload; rank 0's responses.
+  recon_quant the scoring CLI under ``--quantize=int8`` with generator
+              noise (every quantised call's absmax recorded, and its input
+              written to ``<in>'s out/inputs<r>.pt``), then a resume from
+              partial CSVs that hold different numbers of batches on the
+              ranks.
 """
 
 import sys
@@ -288,6 +303,293 @@ def mode_recon(args: dict, rank: int, world: int) -> dict:
             "partials_left": sorted(p.name for p in ood.glob("*.partial.csv"))}
 
 
+def _fake_model(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """tests/test_sweep_multichip.py's ``fake_model`` (elementwise)."""
+    return 0.1 * x + 0.01 * (t.float() / 1000.0).reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+class QuantCalls:
+    """Every int8 product's activation absmax in call order, as (this
+    rank's max |x|, the absmax the product received): the model module's
+    ``qconv_s8`` and ``qdot_s8`` wrapped. With `inputs`, each call's
+    channels-last input too."""
+
+    def __init__(self, inputs: bool = False):
+        from ddpm_ood_tpu_torch.models import unet
+
+        self.calls, self.inputs = [], [] if inputs else None
+        self._orig = (unet.qconv_s8, unet.qdot_s8)
+
+        def wrap(fn):
+            def recorded(x, absmax, *a, **k):
+                self.calls.append((float(x.float().abs().amax()), float(absmax)))
+                if self.inputs is not None:
+                    self.inputs.append(x.numpy().copy())
+                return fn(x, absmax, *a, **k)
+            return recorded
+
+        unet.qconv_s8, unet.qdot_s8 = map(wrap, self._orig)
+
+    def remove(self) -> None:
+        from ddpm_ood_tpu_torch.models import unet
+
+        unet.qconv_s8, unet.qdot_s8 = self._orig
+
+
+TIE_BAND = 1e-3  # code units either side of a .5 tie (tests/test_torch_quant_cli.py)
+
+
+class TieFeed:
+    """``tests/test_torch_quant_cli.py:TieRepair`` for the ranks of a
+    sharded call: forward pre-hooks on every quantised site hold this
+    rank's input of each call against `want[i]`, its rows of the
+    reference's input of that call, whose whole input had the absmax
+    `want_absmax[i]`. The codes (each side under its global scale) must be
+    equal except within TIE_BAND of a .5 tie (the others are counted in
+    ``off_tie``); where any rank's differ, every rank takes its reference
+    rows, so the ranks' absmax stays the reference's."""
+
+    def __init__(self, model, want: list, want_absmax: list):
+        from ddpm_ood_tpu_torch.models import unet
+
+        self.want, self.want_absmax = want, want_absmax
+        self.calls = self.flips = self.fed = self.off_tie = 0
+        self.handles = [m.register_forward_pre_hook(self) for m in model.modules()
+                        if isinstance(m, (unet.QuantConv, unet.QuantDense))]
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+    def __call__(self, module, args):
+        from ddpm_ood_tpu_torch.models import unet
+        from ddpm_ood_tpu_torch.ops import quant
+        from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+
+        x = args[0]
+        mine = unet._to_channels_last_dims(x) if x.dim() > 3 else x
+        i, self.calls = self.calls, self.calls + 1
+        theirs = torch.as_tensor(self.want[i])
+        assert mine.shape == theirs.shape, (i, tuple(mine.shape), tuple(theirs.shape))
+        sx = quant.scale_of(pmesh.all_reduce_max_(mine.float().abs().amax()))
+        differ = quant._codes(mine, sx) != quant._codes(
+            theirs, quant.scale_of(torch.tensor(self.want_absmax[i])))
+        if differ.any():
+            ratio = (mine.float() / sx).abs()
+            near = ((ratio - ratio.floor()) - 0.5).abs() < TIE_BAND
+            self.off_tie += int((differ & ~near).sum())
+            self.flips += int(differ.sum())
+        if not pmesh.any_process(bool(differ.any()), torch.device("cpu")):
+            return None
+        self.fed += 1
+        return (unet._to_channels_first_dims(theirs) if x.dim() > 3 else theirs,)
+
+
+def _wait_for_file(path: str):
+    """The contents of `path`, which the parent test writes while the ranks
+    run."""
+    import time
+
+    deadline = time.monotonic() + 600
+    while not Path(path).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path}")
+        time.sleep(0.05)
+    return torch.load(path, weights_only=False)
+
+
+def mode_sharded(inp: dict, rank: int, world: int) -> dict:
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.models.unet import make_unet
+    from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+    from ddpm_ood_tpu_torch.recon.sweep import ReconProgram, plms_sweep
+
+    sched = make_schedule(*inp["sched_args"])
+    out = {}
+    x0 = torch.from_numpy(inp["x0"])
+    noise = torch.from_numpy(inp["noise"])
+    rows = slice(rank * len(x0) // world, (rank + 1) * len(x0) // world)
+    mine = plms_sweep(sched, _fake_model, pmesh.shard_rows(x0), noise[:, rows],
+                      torch.as_tensor(inp["ts"]), torch.as_tensor(inp["t_starts"]), 10)
+    out["sweep"] = pmesh.all_gather_rows(mine, dim=1)
+
+    def program(model_fn, host, **kw):
+        return ReconProgram(sched=sched, model_fn=model_fn, num_inference_steps=10,
+                            inference_skip_factor=4, sharded=True,
+                            host_noise_fn=lambda shape, t_starts: host, **kw)
+
+    elbo = program(_fake_model, inp["elbo_noise"], score_elbo=True, num_groups=2)
+    out["elbo"] = elbo(pmesh.shard_rows(inp["elbo_x0"]), global_batch=len(inp["elbo_x0"]))
+
+    model = make_unet("tiny", 2, 1, 1, quant="int8")
+    model.load_state_dict(_wait_for_file(inp["state"]), strict=True)
+    model = model.to(memory_format=torch.channels_last).eval()
+    int8 = program(model, inp["int8_noise"], num_groups=1)
+    images = pmesh.shard_rows(inp["int8_x0"])
+    calls = QuantCalls()
+    try:
+        out["int8"] = int8(images, global_batch=len(inp["int8_x0"]))
+    finally:
+        calls.remove()
+    out["int8_absmax"] = calls.calls
+    # JAX's input of every quantised call, written by the parent once its
+    # JAX run is done; this rank's rows of each
+    jax_sites, jax_absmax = _wait_for_file(inp["sites"])
+    n = len(inp["int8_x0"])
+    mine = [x.reshape((-1, n) + x.shape[1:])[:, rows].reshape((-1,) + x.shape[1:])
+            for x in jax_sites]
+    feed = TieFeed(model, mine, jax_absmax)
+    try:
+        out["int8_fed"] = int8(images, global_batch=n)
+    finally:
+        feed.remove()
+    out["int8_feed"] = dict(calls=feed.calls, fed=feed.fed, flips=feed.flips,
+                            off_tie=feed.off_tie)
+    return out
+
+
+def serve_program(state: dict, quant=None, host_noise=None, sharded: bool = True):
+    """The tiny UNet's fp32 scoring program at tests/test_torch_serve.py's
+    grid (PLMS 10/3 in 2 lane groups), from `state`; host noise
+    ``host_noise(shape)`` when given, else the service's generator."""
+    from ddpm_ood_tpu_torch.diffusion.schedules import make_schedule
+    from ddpm_ood_tpu_torch.models.unet import make_unet
+    from ddpm_ood_tpu_torch.recon.sweep import ReconProgram
+
+    model = make_unet("tiny", 2, 1, 1, quant=quant)
+    model.load_state_dict(state, strict=True)
+    model = model.to(memory_format=torch.channels_last).eval()
+    return ReconProgram(
+        sched=make_schedule("scaled_linear_beta", 1000, 0.0015, 0.0195), model_fn=model,
+        num_inference_steps=10, inference_skip_factor=3, num_groups=2, sharded=sharded,
+        host_noise_fn=None if host_noise is None else (lambda shape, t: host_noise(shape)))
+
+
+def serve_cases(inp: dict, sharded: bool = True):
+    """(name, service, calls) of the sharded-service cases: `calls` a list
+    of ("score", images), ("bad", images of another shape), ("reload",
+    None) and ("sleep", seconds) that rank 0 makes in order. The same cases
+    with ``sharded=False`` are the one-process references. A reload hook
+    runs on rank 0 only: the other ranks take rank 0's weights."""
+    from types import SimpleNamespace
+
+    from ddpm_ood_tpu_torch import serve
+    from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+    from ddpm_ood_tpu_torch.serve import ScoringService, warmup_program
+
+    keepalive = serve.KEEPALIVE_SECONDS
+
+    def host_noise(shape):
+        return np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+
+    def service(batch, quant=None, host=False, warm=False, reload_to=None, **kw):
+        program = serve_program(inp["state"], quant, host_noise if host else None, sharded)
+        reload_fn = None
+        if reload_to is not None:
+            def reload_fn():
+                assert pmesh.process_index() == 0, "a follower takes rank 0's weights"
+                program.model_fn.load_state_dict(reload_to, strict=True)
+                return "reloaded"
+        svc = ScoringService(program, inp["stats"], batch_size=batch, model_name="t",
+                             reload_fn=reload_fn, image_shape=(16, 16, 1),
+                             model=program.model_fn, **kw)
+        if warm:
+            args = SimpleNamespace(image_size=16, spatial_dimension=2, is_grayscale=1)
+            assert warmup_program(program, args, batch) >= 0
+        return svc
+
+    images = inp["images"]
+    yield "host", service(8, host=True), [("score", images[:5])]
+    yield "cold", service(8), [("score", images[:8])]
+    yield "warm", service(8, warm=True), [("score", images[:8])]
+    # batch 5 over 2 ranks is one of 6: in one process, batch 6; an idle
+    # spell of several keepalives first, then a request of 2 channels
+    serve.KEEPALIVE_SECONDS = 0.1
+    yield "odd", service(5 if sharded else 6, host=True), [
+        ("sleep", 0.5), ("bad", np.repeat(images[:3], 2, axis=-1)), ("score", images[:3])]
+    serve.KEEPALIVE_SECONDS = keepalive
+    yield "int8", service(4, quant="int8", reload_to=inp["state2"]), [
+        ("score", images[:4]), ("score", images[:1]), ("reload", None), ("score", images[:4])]
+
+
+def run_serve_case(svc, calls) -> list:
+    """The responses of the "score" calls; a "bad" call's ValueError message."""
+    import time
+
+    out = []
+    for op, arg in calls:
+        if op == "score":
+            out.append(svc.score(arg))
+        elif op == "bad":
+            try:
+                svc.score(arg)
+            except ValueError as e:
+                out.append(str(e))
+            else:
+                raise AssertionError("a request of another image shape was scored")
+        elif op == "reload":
+            svc.reload()
+        else:
+            time.sleep(arg)
+    return out
+
+
+def mode_serve(inp: dict, rank: int, world: int) -> dict:
+    """Rank 0 makes each case's calls and stops its service; the other
+    ranks follow. Rank 0's responses and every rank's counters, int8
+    absmaxes (``QuantCalls``) and weights' digest at the end."""
+    out = {}
+    for name, svc, calls in serve_cases(inp):
+        absmax = QuantCalls()
+        try:
+            if rank == 0:
+                out[name] = run_serve_case(svc, calls)
+                svc.stop()
+            else:
+                svc.follow()
+        finally:
+            absmax.remove()
+        out[f"{name}_stats"] = dict(svc.stats, world=svc.world, absmax=absmax.calls,
+                                    weights=digest(svc.model.state_dict().values()))
+    return out
+
+
+def mode_recon_quant(inp: dict, rank: int, world: int) -> dict:
+    """The scoring CLI (``reconstruct.main``) under ``--quantize=int8``;
+    then partial CSVs holding this rank's first ``held[rank]`` batches, and
+    the CLI again with ``--resume=1``."""
+    from ddpm_ood_tpu_torch import reconstruct
+    from ddpm_ood_tpu_torch.parallel import mesh as pmesh
+
+    calls = QuantCalls(inputs=True)
+    try:
+        recon = reconstruct.main(inp["argv"])
+    finally:
+        calls.remove()
+    # for the parent's reference, while this rank resumes
+    tmp = Path(inp["out"]) / f"inputs{rank}.tmp"
+    torch.save(calls.inputs, tmp)
+    tmp.rename(tmp.with_suffix(".pt"))
+    ood, k, b = recon.out_dir, len(recon._programs[inp["skip"]].t_starts), inp["batch"]
+    pmesh.coordination_barrier("scored")
+    merged = (ood / "results_val.csv").read_text()
+    shard = (ood / f".results_val.shard{rank}.csv").read_text()
+    pmesh.coordination_barrier("read")
+    lines = shard.splitlines()[:1 + k * b * inp["held"][rank]]
+    (ood / f".results_val.shard{rank}.partial.csv").write_text(
+        "\n".join(",".join(line.split(",")[1:]) for line in lines) + "\n")
+    if rank == 0:
+        (ood / "results_val.csv").unlink()
+    pmesh.coordination_barrier("partials written")
+    resumed = reconstruct.main(inp["argv"] + ["--resume=1"])
+    pmesh.coordination_barrier("resumed")
+    return {"merged": merged, "shard": shard, "batches": len(recon.batch_times),
+            "absmax": calls.calls,
+            "resumed_batches": len(resumed.batch_times),
+            "resumed": (ood / "results_val.csv").read_text(),
+            "partials_left": sorted(p.name for p in ood.glob("*.partial.csv"))}
+
+
 def main() -> None:
     import runpy
 
@@ -312,7 +614,8 @@ def main() -> None:
     dist.init_process_group("gloo")
     rank, world = dist.get_rank(), dist.get_world_size()
     fns = {"ddpm_step": mode_ddpm_step, "vqvae_step": mode_vqvae_step,
-           "trainer": mode_trainer, "fsdp": mode_fsdp, "recon": mode_recon}
+           "trainer": mode_trainer, "fsdp": mode_fsdp, "recon": mode_recon,
+           "sharded": mode_sharded, "serve": mode_serve, "recon_quant": mode_recon_quant}
     for i in range(0, len(sys.argv) - 1, 3):  # one group for every (mode, in, out)
         mode, inp_path, out_dir = sys.argv[1 + i], Path(sys.argv[2 + i]), Path(sys.argv[3 + i])
         inp = (json.loads(inp_path.read_text()) if inp_path.suffix == ".json"
