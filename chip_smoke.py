@@ -12,14 +12,16 @@ Phases, each fatal on failure:
                  torch version and the card's name and power limit.
   2. build    -- compiles ddpm_ood_tpu_torch/csrc/*.cu with nvcc (one process
                  per source, all at once), prints ptxas' register, spill and
-                 shared-memory lines, and fails if a tensor-core kernel spills.
+                 shared-memory lines, and fails if a tensor-core kernel spills
+                 or if qconv_s8's SASS (cuobjdump) holds no warpgroup MMA.
   3. kernels  -- every kernel (GroupNorm on thread-block clusters, and the
                  one-block-per-group GroupNorm at a sample too large for a
                  cluster; flash forward, flash backward dK/dV and dQ, bf16 on
-                 tensor cores, fp32 on CUDA cores; int8 scoring's absmax and
-                 s8 x s8 -> s32 convolution, whose absmax, codes, int32 sums
-                 and fp32 and bf16 outputs must equal the plain version's
-                 exactly at QCONV_SHAPES) against its plain PyTorch
+                 tensor cores, fp32 on CUDA cores; int8 scoring's absmax,
+                 activation codes and s8 x s8 -> s32 convolution, whose
+                 absmax, codes, int32 sums and fp32 and bf16 outputs must
+                 equal the plain version's exactly at QCONV_SHAPES, beside
+                 cuBLAS's torch._int_mm over im2col codes) against its plain PyTorch
                  version at the main paths' shapes and ragged ones, with the
                  tolerance stated; each timed
                  (device time, CUDA events, the host's launch overhead hidden
@@ -89,7 +91,7 @@ Phases, each fatal on failure:
                  (lattice hashes equal, planes within 1e-5); an fp32 small-UNet
                  sweep on one host simplex draw, card against CPU; the scoring
                  CLI at the main path's configuration with exact noise on
-                 three splits and device noise on the val split alone
+                 two splits and device noise on the val split alone
                  (recons/s beside the main phase's Gaussian run,
                  host seconds making noise and waiting for it, 27 GroupNorm and
                  4 flash launches per forward, previews); a crash after batch
@@ -103,9 +105,10 @@ Phases, each fatal on failure:
                  the main phase's 32 validation images at its flags under
                  --quantize=int8 and w8: finite CSVs; scores against the
                  unquantised run's (median relative difference < 0.05,
-                 correlation > 0.999); 49 absmax and 49 qconv_s8 launches a
-                 forward under int8, none under w8, 27 GroupNorm and 4 flash
-                 a forward in every mode; recons/s per mode.
+                 correlation > 0.999); 49 absmax, 49 quantize_codes and 49
+                 qconv_s8 launches a forward under int8, none under w8, 27
+                 GroupNorm and 4 flash a forward in every mode; recons/s
+                 per mode.
  14. ldm pieces -- fp32, TF32 off, card against CPU at full channel widths:
                  the small UNet in 3D on (2, 128, 8, 8, 8) latents; the
                  Decathlon VQ-VAE (four 256-channel levels, 2048 codes of
@@ -263,7 +266,9 @@ ATTN_LDM = (544, 8, 256, torch.bfloat16)  # the summary's latent-diffusion atten
 ATTN_LDM_TRAIN = (6, 8, 256, torch.bfloat16)  # and the latent-diffusion training step's
 # ptxas must show no spill
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
-              "qconv_s8_kernel")
+              "qconv_s8_kernel", "quant_codes_kernel")
+# kernels whose SASS must hold warpgroup MMA (GMMA) instructions
+GMMA_KERNELS = ("qconv_s8_kernel",)
 ATTN_SUMMARY = (128, 64, 256, torch.bfloat16)  # the training path's shape
 
 
@@ -319,6 +324,28 @@ def phase_build() -> None:
     log(f"build: tensor-core kernels' spill bytes (ptxas) {spills}")
     if not spills or any(spills.values()):
         raise PhaseError(f"tensor-core kernels must compile without spills: {spills}")
+    gmma = sass_gmma(_kernels.LIB_PATH, Path(_kernels.find_nvcc()).parent / "cuobjdump")
+    log(f"build: warpgroup MMA instructions in the SASS (cuobjdump) {gmma}")
+    if sorted(gmma) != sorted(GMMA_KERNELS) or not all(gmma.values()):
+        raise PhaseError(f"{', '.join(GMMA_KERNELS)} must run on warpgroup MMA: SASS {gmma}")
+
+
+def sass_gmma(lib: Path, cuobjdump: Path) -> dict:
+    """{kernel of GMMA_KERNELS: its count of GMMA instructions} in the SASS
+    of the built library."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise PhaseError(f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = next((k for k in GMMA_KERNELS if k in m.group(1)), None)
+            if name is not None:
+                counts.setdefault(name, 0)
+        elif name is not None and "GMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _check(name: str, err: float, tol: float, what: str) -> None:
@@ -496,12 +523,14 @@ def phase_kernels(dev: torch.device) -> dict:
 # padding; window None for qdot): the small UNet's quantised sites at the
 # headline's 64 images a UNet call (level 0 and level 1 3x3, the stride-2
 # Downsample, an up-path 1x1 skip, the attention projections over 64 x 64
-# tokens) and the 3D latent path's level 0 (a 17-lane group of batch 2 on 8^3
+# tokens), level 1 at a lane group's 512 images (bench_quant_micro's shape),
+# and the 3D latent path's level 0 (a 17-lane group of batch 2 on 8^3
 # latents); then ragged ones: M, N and K off the tiles (Cin stays a multiple
 # of 8, as the kernel's 16-byte loads need), and XLA's SAME at stride 2 (pads
 # (0, 1)).
 QCONV_SHAPES = [("level0 3x3", (64, 32, 32, 128), 128, 3, 1, "SAME"),
                 ("level1 3x3", (64, 16, 16, 256), 256, 3, 1, "SAME"),
+                ("sweep level1 3x3", (512, 16, 16, 256), 256, 3, 1, "SAME"),
                 ("downsample", (64, 32, 32, 128), 128, 3, 2, [(1, 1)] * 2),
                 ("skip 1x1", (64, 32, 32, 256), 128, 1, 1, "SAME"),
                 ("qdot", (64, 64, 256), 256, None, 1, "SAME"),
@@ -511,18 +540,59 @@ QCONV_SHAPES = [("level0 3x3", (64, 32, 32, 128), 128, 3, 1, "SAME"),
 QCONV_SUMMARY, QCONV_LDM = "level0 3x3", "ldm level0 3x3x3"
 
 
+def _im2col(xq: torch.Tensor, window, strides, pads) -> torch.Tensor:
+    """The (M, K) matrix of an implicit-GEMM convolution's activation rows:
+    channels-last xq (B, *spatial, C) zero-padded by `pads`, every window tap
+    at every output position, K ordered (tap, channel) as the packed weight."""
+    import itertools
+
+    spatial = xq.shape[1:-1]
+    padded = xq.new_zeros((xq.shape[0],) + tuple(n + lo + hi for n, (lo, hi) in
+                                                 zip(spatial, pads)) + (xq.shape[-1],))
+    padded[(slice(None),) + tuple(slice(lo, lo + n) for n, (lo, _) in zip(spatial, pads))] = xq
+    out = [(n + lo + hi - k) // s + 1 for n, k, s, (lo, hi) in zip(spatial, window, strides, pads)]
+    taps = [padded[(slice(None),) + tuple(slice(o, o + s * (m - 1) + 1, s)
+                                          for o, s, m in zip(offs, strides, out))]
+            for offs in itertools.product(*(range(k) for k in window))]
+    return torch.stack(taps, dim=-2).reshape(-1, len(taps) * xq.shape[-1])
+
+
+def _int_mm_ms(xq, wcodes, window, strides, pads):
+    """Device ms of torch._int_mm (cuBLAS s8 x s8 -> s32) on the same M, N, K
+    over codes already laid out as im2col (a yardstick the port never
+    calls), or None where cuBLAS refuses the shape (M <= 16, K or N off a
+    multiple of 8)."""
+    from bench_attention import time_cuda
+
+    a = _im2col(xq, window, strides, pads) if window else xq.reshape(-1, xq.shape[-1])
+    rows = wcodes.permute((0,) + tuple(range(2, wcodes.dim())) + (1,)).reshape(
+        wcodes.shape[0], -1)
+    b = rows.t()  # (K, N), column-major
+    if a.shape[0] <= 16 or a.shape[1] % 8 or b.shape[1] % 8:
+        return None
+    try:
+        got = torch._int_mm(a, b)
+    except RuntimeError as e:  # a cuBLAS refusal of the layout: no yardstick
+        log(f"  torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {e}")
+        return None
+    if not torch.equal(got, (a.double() @ b.double()).round().int()):
+        raise PhaseError(f"torch._int_mm on {tuple(a.shape)} x {tuple(b.shape)}: wrong sums")
+    return time_cuda(lambda: torch._int_mm(a, b))
+
+
 def _qconv_case(dev, gen, name, shape, cout, window, stride, padding, dtype) -> dict:
     """One shape of quant_kernels: the kernels against their plain versions
     (absmax, codes, int32 sums, fp32 and bf16 outputs, all exact); in bf16,
     their times beside the plain version's, cuDNN's bf16 convolution (or
-    cuBLAS's bf16 linear for qdot: PyTorch has no s8 convolution) and the bound."""
+    cuBLAS's bf16 linear for qdot: PyTorch has no s8 convolution), cuBLAS's
+    s8 product torch._int_mm over im2col codes, and the bound."""
     import torch.nn.functional as F
 
     from bench_attention import bound, time_cuda
     from ddpm_ood_tpu_torch.ops.quant import (
-        conv_padding, qconv_s8, qconv_s8_reference, qdot_s8,
-        qdot_s8_reference, quant_absmax, quant_absmax_reference, quantize_int8, quantize_weight,
-        s8_conv_sum, s8_dot_sum,
+        conv_padding, padded_channels, qconv_s8, qconv_s8_reference, qdot_s8,
+        qdot_s8_reference, quant_absmax, quant_absmax_reference, quantize_codes,
+        quantize_codes_reference, quantize_int8, quantize_weight, s8_conv_sum, s8_dot_sum,
     )
 
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -543,6 +613,11 @@ def _qconv_case(dev, gen, name, shape, cout, window, stride, padding, dtype) -> 
     xq_cpu, sx_cpu = quantize_int8(x.cpu())
     if not (torch.equal(xq.cpu(), xq_cpu) and torch.equal(sx.cpu(), sx_cpu)):
         raise PhaseError(f"{what}: activation codes or scale differ, card vs CPU")
+    codes = quantize_codes(x, absmax)
+    torch.cuda.synchronize()
+    if not torch.equal(codes, quantize_codes_reference(x, absmax)):
+        raise PhaseError(f"quantize_codes {what}: codes differ from the plain version's "
+                         f"({(codes != quantize_codes_reference(x, absmax)).sum().item()})")
     if window is None:  # qdot: (B, N, C) tokens
         def run(out_dtype, b=bias):
             return qdot_s8(x, absmax, w, b, out_dtype)
@@ -577,7 +652,7 @@ def _qconv_case(dev, gen, name, shape, cout, window, stride, padding, dtype) -> 
                              f"(max abs {err:.3e}, {(got != ref).sum().item()} elements)")
     m = sums.numel() // cout
     k = cin * (window ** nd if window else 1)
-    log(f"{what}: M={m} N={cout} K={k} pads={pads}: absmax, codes, int32 sums and "
+    log(f"{what}: M={m} N={cout} K={k} pads={pads}: absmax, codes (kernel), int32 sums and "
         f"{'fp32' if dtype == torch.float32 else 'fp32 and bf16'} outputs equal the plain "
         "version's exactly")
     if dtype != torch.bfloat16:
@@ -595,28 +670,39 @@ def _qconv_case(dev, gen, name, shape, cout, window, stride, padding, dtype) -> 
         lo = tuple(p for p, _ in pads)
         lib = (time_cuda(lambda: conv(xc, wc, bb, stride=strides, padding=lo))
                if all(a == b for a, b in pads) else None)
+    int_mm = _int_mm_ms(xq, w.codes, (window,) * nd if window else None, strides, pads)
     nbytes = x.numel() * x.element_size() + cout * k + 2 * cout * 4 + m * cout * 2
     row = {"shape": {"x": list(shape), "cout": cout, "window": window, "stride": stride,
                      "M": m, "N": cout, "K": k},
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib, "int_mm_ms": int_mm,
            **bound(nbytes, 2.0 * m * cout * k, torch.int8)}
+    c_ms = time_cuda(lambda: quantize_codes(x, absmax))
+    c_plain = time_cuda(lambda: quantize_codes_reference(x, absmax))
+    pixels = x.numel() // cin
+    c_row = {"shape": list(shape), "ms": c_ms, "plain_ms": c_plain, "library_ms": None,
+             **bound(x.numel() * x.element_size() + pixels * padded_channels(cin) + 4,
+                     x.numel(), torch.float32)}
     a_ms = time_cuda(lambda: quant_absmax(x))
     a_plain = time_cuda(lambda: quant_absmax_reference(x))
     a_lib = time_cuda(lambda: torch.linalg.vector_norm(x, float("inf")))
     a_row = {"shape": list(shape), "ms": a_ms, "plain_ms": a_plain, "library_ms": a_lib,
              **bound(x.numel() * x.element_size() + 4, x.numel(), torch.float32)}
-    log(f"  {name} bf16: qconv_s8 {ms:.5f} ms, plain {plain_ms:.5f} ms, library (cuDNN/cuBLAS "
-        f"bf16) " + (f"{lib:.5f} ms" if lib is not None else "-")
-        + f", bound {row['bound_ms']:.5f} ms ({row['bound_by']}); quant_absmax {a_ms:.5f} ms, "
-        f"plain {a_plain:.5f}, vector_norm(inf) {a_lib:.5f}, bound {a_row['bound_ms']:.5f} ms")
-    return {"qconv_s8": row, "quant_absmax": a_row}
+    log(f"  {name} bf16: qconv_s8 {ms:.5f} ms (quantize_codes included), plain {plain_ms:.5f} "
+        "ms, library (cuDNN/cuBLAS bf16) " + (f"{lib:.5f} ms" if lib is not None else "-")
+        + ", torch._int_mm " + (f"{int_mm:.5f} ms" if int_mm is not None else "-")
+        + f", bound {row['bound_ms']:.5f} ms ({row['bound_by']}); quantize_codes {c_ms:.5f} "
+        f"ms, plain {c_plain:.5f}, bound {c_row['bound_ms']:.5f} ms; quant_absmax {a_ms:.5f} "
+        f"ms, plain {a_plain:.5f}, vector_norm(inf) {a_lib:.5f}, bound {a_row['bound_ms']:.5f} ms")
+    return {"qconv_s8": row, "quant_absmax": a_row, "quantize_codes": c_row}
 
 
 def quant_kernels(dev: torch.device) -> dict:
     """quant_absmax and qconv_s8 at QCONV_SHAPES in fp32 and bf16, then the
     absmax of an all-zero tensor (0, so sx = 1) and a zero input's output
     (the bias, exactly); the bf16 summary rows of phase_kernels's JSON."""
-    from ddpm_ood_tpu_torch.ops.quant import qconv_s8, quant_absmax, quantize_weight
+    from ddpm_ood_tpu_torch.ops.quant import (
+        qconv_s8, quant_absmax, quantize_codes, quantize_codes_reference, quantize_weight,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
@@ -629,24 +715,30 @@ def quant_kernels(dev: torch.device) -> dict:
     bias = torch.randn((8,), generator=gen, device=dev)
     absmax = quant_absmax(zeros)
     y = qconv_s8(zeros, absmax, w, bias, (1, 1), [(1, 1)] * 2, torch.float32)
-    if absmax.item() != 0.0 or not torch.equal(y, bias.expand_as(y)):
-        raise PhaseError("quant_absmax / qconv_s8 on zeros: absmax "
-                         f"{absmax.item()}, output not the bias")
+    codes = quantize_codes(zeros, absmax)
+    if absmax.item() != 0.0 or not torch.equal(y, bias.expand_as(y)) or codes.any() \
+            or not torch.equal(codes, quantize_codes_reference(zeros, absmax)):
+        raise PhaseError("quant_absmax / quantize_codes / qconv_s8 on zeros: absmax "
+                         f"{absmax.item()}, codes not all 0 or output not the bias")
     # Cin off a multiple of 8, or x off a 16-byte boundary: refused, not launched
     w20 = quantize_weight(torch.randn((8, 20, 3, 3), generator=gen, device=dev))
     x20 = torch.randn((2, 4, 4, 20), generator=gen, device=dev)
     x_off = torch.randn((2 * 4 * 4 * 16 + 1,), generator=gen, device=dev)[1:].view(2, 4, 4, 16)
-    before = qconv_s8.launches
+    before = (qconv_s8.launches, quantize_codes.launches)
     for what, xx, ww in (("Cin 20", x20, w20), ("x off 16 bytes", x_off, w)):
-        try:
-            qconv_s8(xx, quant_absmax(xx), ww, None, (1, 1), [(1, 1)] * 2, torch.float32)
-        except ValueError:
-            continue
-        raise PhaseError(f"qconv_s8 with {what}: launched where it must raise ValueError")
-    if qconv_s8.launches != before:
-        raise PhaseError("qconv_s8: a refused call counted a launch")
+        for call in (lambda: qconv_s8(xx, quant_absmax(xx), ww, None, (1, 1), [(1, 1)] * 2,
+                                      torch.float32),
+                     lambda: quantize_codes(xx, quant_absmax(xx))):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise PhaseError(f"qconv_s8 / quantize_codes with {what}: launched where it must "
+                             "raise ValueError")
+    if (qconv_s8.launches, quantize_codes.launches) != before:
+        raise PhaseError("qconv_s8 / quantize_codes: a refused call counted a launch")
     summary = {name: dict(rows[QCONV_SUMMARY, torch.bfloat16][name]) for name in
-               ("qconv_s8", "quant_absmax")}
+               ("qconv_s8", "quant_absmax", "quantize_codes")}
     for name in summary:
         summary[name]["ldm"] = rows[QCONV_LDM, torch.bfloat16][name]
         summary[name]["all_shapes_bf16"] = {
@@ -671,6 +763,8 @@ KERNELS = {
     # s8 x s8 -> s32 convolution and dot in the JAX package
     "quant_absmax": ("ddpm_ood_tpu_torch/csrc/quant_absmax.cu",
                      "ddpm_ood_tpu/ops/quant.py:40"),
+    "quantize_codes": ("ddpm_ood_tpu_torch/csrc/quant_codes.cu",
+                       "ddpm_ood_tpu/ops/quant.py:45"),
     "qconv_s8": ("ddpm_ood_tpu_torch/csrc/qconv_s8.cu", "ddpm_ood_tpu/ops/quant.py:62"),
 }
 # the main path: small UNet, 32x32x1, 100-step PLMS, skip factor 4, batch 32
@@ -1093,7 +1187,7 @@ def _tracks(got: dict, want: dict, what: str) -> dict:
 def phase_quant(started: tuple, none_rows: dict, none_rate: float) -> dict:
     """Wait for start_quant's interpreter and check its runs: finite CSVs;
     int8 and w8 scores against phase_main's unquantised ones on the same
-    images; the launch counts (QUANT_SITES absmax and qconv_s8 launches a
+    images; the launch counts (QUANT_SITES absmax, codes and qconv_s8 launches a
     forward under int8, none under w8 and in the mixed forward; 27 GroupNorm
     and 4 flash a forward in every mode); recons/s per mode. Returns the
     int8 run's launch counts."""
@@ -1121,7 +1215,8 @@ def phase_quant(started: tuple, none_rows: dict, none_rate: float) -> dict:
     forwards = sum(len(s) for s, _ in group_t_starts(ts, t_starts, 16))  # one batch
     summary = {"card": CARD, "seconds": seconds}
     mixed = records["mixed"]
-    want = {"quant_absmax": 0, "qconv_s8": 0, "groupnorm_act": GN_PER_FORWARD,
+    want = {"quant_absmax": 0, "quantize_codes": 0, "qconv_s8": 0,
+            "groupnorm_act": GN_PER_FORWARD,
             "groupnorm_act_cluster": GN_PER_FORWARD, "flash_attention_fwd": ATTN_PER_FORWARD,
             "flash_attention_fwd_tc": ATTN_PER_FORWARD}
     got = {k: mixed["launches"][k] for k in want}
@@ -1139,7 +1234,7 @@ def phase_quant(started: tuple, none_rows: dict, none_rate: float) -> dict:
         want_sites = {"QuantConv": 33 if mode == "int8" else 0,
                       "QuantDense": 16 if mode == "int8" else 0,
                       "WeightOnlyQuantConv": 33 if mode == "w8" else 0}
-        want = {"quant_absmax": int8, "qconv_s8": int8,
+        want = {"quant_absmax": int8, "quantize_codes": int8, "qconv_s8": int8,
                 "groupnorm_act": GN_PER_FORWARD * evals,
                 "groupnorm_act_cluster": GN_PER_FORWARD * evals,
                 "flash_attention_fwd": ATTN_PER_FORWARD * evals,
@@ -2164,12 +2259,13 @@ def _launch_counters():
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
     )
     from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act
-    from ddpm_ood_tpu_torch.ops.quant import qconv_s8, quant_absmax
+    from ddpm_ood_tpu_torch.ops.quant import qconv_s8, quant_absmax, quantize_codes
 
     return {"groupnorm_act": groupnorm_act, "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
-            "quant_absmax": quant_absmax, "qconv_s8": qconv_s8}
+            "quant_absmax": quant_absmax, "quantize_codes": quantize_codes,
+            "qconv_s8": qconv_s8}
 
 
 # wrappers that also count their bf16 tensor-core launches, read as "<name>_tc"
@@ -2203,7 +2299,7 @@ def _step_launches(forwards: int, backwards: int, bf16: bool, remat: tuple = (0,
             "flash_attention_fwd": ATTN_PER_FORWARD * forwards + remat[1] * backwards,
             "flash_attention_bwd_dkv": ATTN_PER_FORWARD * backwards,
             "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards,
-            "quant_absmax": 0, "qconv_s8": 0}  # training is never quantised
+            "quant_absmax": 0, "quantize_codes": 0, "qconv_s8": 0}  # never quantised
     want.update({f"{name}_tc": want[name] if bf16 else 0 for name in TC_COUNTED})
     return want
 
@@ -2676,13 +2772,13 @@ def phase_train_ldm(dev: torch.device, root: Path) -> dict:
 # with --score_ssim=1 --save_error_maps=1, phase_main's data and weights)
 # with exact host noise and with on-device noise; phase_main's run is the
 # Gaussian one
-# (mode, flags, the splits it scores): device noise scores the val split
-# alone, one batch, to keep the script's time
-SIMPLEX_MODES = (("exact", ["--simplex_noise=1"], ("val", "in", "checkerboard")),
+# (mode, flags, the splits it scores): exact noise scores the val and the
+# out split (the out preview's name), device noise the val split alone, to
+# keep the script's time
+SIMPLEX_MODES = (("exact", ["--simplex_noise=1", "--run_in=0"], ("val", "checkerboard")),
                  ("device", ["--simplex_noise=1", "--simplex_noise_mode=device", "--run_in=0",
                              "--run_out=0"], ("val",)))
-SIMPLEX_PREVIEWS = {"val": "preview_val.npy", "in": "preview_in.npy",
-                    "checkerboard": "preview_out_3.npy"}
+SIMPLEX_PREVIEWS = {"val": "preview_val.npy", "checkerboard": "preview_out_2.npy"}
 DEVICE_NOISE_TOL = 1e-5  # simplex_noise_device planes of ~1, fp32 card vs CPU
 # crash and resume: the headline model on a shorter grid (PLMS 20/2), 2
 # batches of 32; the resumed CSV against an uninterrupted run's, each column
@@ -3784,7 +3880,8 @@ def _check_ddp_quant(a: dict, b: dict) -> dict:
         what = f"ddp quant, rank {rank}"
         _check_launches(rec["launches"], rec["evals"], what, bf16=True)
         int8 = QUANT_SITES * rec["evals"]
-        if (rec["launches"]["quant_absmax"], rec["launches"]["qconv_s8"]) != (int8, int8):
+        if (rec["launches"]["quant_absmax"], rec["launches"]["quantize_codes"],
+                rec["launches"]["qconv_s8"]) != (int8, int8, int8):
             raise PhaseError(f"{what}: launches {rec['launches']}, expected {int8} int8 each")
     _check_absmax_spans([a["absmax"], b["absmax"]], QUANT_SITES * a["evals"], "ddp quant")
     merged = {k: float(r["mse"]) for k, r in _csv_rows(a["merged"]).items()}
@@ -3849,9 +3946,10 @@ def _check_serve_sharded(recs: dict) -> dict:
                     raise PhaseError(f"{what}: rank {rank} wrote no launch counts")
                 _check_launches(launches, evals, f"{what}, rank {rank}", bf16=True)
                 int8 = QUANT_SITES * evals if quantize == "int8" else 0
-                if (launches["quant_absmax"], launches["qconv_s8"]) != (int8, int8):
+                if (launches["quant_absmax"], launches["quantize_codes"],
+                        launches["qconv_s8"]) != (int8, int8, int8):
                     raise PhaseError(f"{what}, rank {rank}: {launches}, expected {int8} "
-                                     "quant_absmax and qconv_s8 launches")
+                                     "quant_absmax, quantize_codes and qconv_s8 launches")
             if quantize == "int8":
                 _check_absmax_spans(rec["absmax"], QUANT_SITES * evals, what)
         for i, what in enumerate(("a full batch", "one image (wrap-padded)",

@@ -12,12 +12,14 @@ x (batch, hw, hw, cin) bf16 from a seeded normal draw, weights of std 0.05):
               card, the yardstick (the port never calls it on the int8 path);
   int8dyn  -- what ``--quantize=int8`` runs at each convolution: one
               ``quant_absmax`` (the dynamic activation scale) and one
-              ``qconv_s8`` (quantise on load, s8 x s8 -> s32, dequantise to
-              bf16), with the weight quantised once outside the loop, as the
-              model caches it and as XLA hoists it out of JAX's scan;
+              ``qconv_s8`` (the activation's codes made once by
+              ``quantize_codes``, then s8 x s8 -> s32 on warpgroup MMA,
+              dequantised to bf16), with the weight quantised once outside
+              the loop, as the model caches it and as XLA hoists it out of
+              JAX's scan;
   int8pre  -- ``qconv_s8`` alone, the activation's absmax computed outside
               the loop (the upper bound of a static calibrated scale; the
-              kernel still quantises on load, where JAX's int8pre feeds
+              codes are still made each call, where JAX's int8pre feeds
               codes made outside the loop).
 
 Each variant runs `iters` calls back to back, timed with CUDA events on the

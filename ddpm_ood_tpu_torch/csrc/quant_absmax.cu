@@ -16,8 +16,9 @@
 // |x| in registers, a warp max by shuffles, a block max through shared
 // memory, then one atomicMax per block on the float's bit pattern into the
 // output. For values >= 0 the IEEE-754 bit patterns, read as signed ints,
-// order as the floats do, so the integer max is the float max. The caller
-// zeroes the output before the launch (max |x| >= 0, so 0 is the identity).
+// order as the floats do, so the integer max is the float max. The entry
+// point zeroes the output on the stream before the launch (max |x| >= 0, so
+// 0 is the identity).
 // fmaxf drops NaN where x.abs().max() would return it; inputs are finite.
 #include <stdint.h>
 
@@ -74,7 +75,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace ddpm
 
 // x: n elements (dtype 0 fp32, 1 bf16); out: one fp32 on the same card,
-// zeroed by the caller. Launches on `stream`; returns cudaGetLastError().
+// zeroed here first. Launches on `stream`; returns cudaGetLastError().
 extern "C" int ddpm_quant_absmax(const void* x, long long n, int dtype, float* out, int device,
                                  void* stream) {
   if (n < 1 || (dtype != ddpm::kFloat32 && dtype != ddpm::kBFloat16))
@@ -90,6 +91,8 @@ extern "C" int ddpm_quant_absmax(const void* x, long long n, int dtype, float* o
   if (blocks > 8LL * sms) blocks = 8LL * sms;  // the grid-stride loop covers the rest
   const int vectorised = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(float), s);
+  if (err != cudaSuccess) return err;
   int* bits = reinterpret_cast<int*>(out);
   if (dtype == ddpm::kFloat32) {
     ddpm::quant_absmax_kernel<float><<<static_cast<int>(blocks), ddpm::kThreads, 0, s>>>(

@@ -57,11 +57,13 @@ SIGNATURES = {
     "ddpm_flash_attn_bwd_dq": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     # q, k, v, dO, lse, delta, dq, BH, N, D, scale, device, stream (bf16, tensor cores)
     "ddpm_flash_attn_bwd_dq_tc": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
-    # x, n, dtype, out (one fp32, zeroed), device, stream
+    # x, n, dtype, out (one fp32, zeroed by the call), device, stream
     "ddpm_quant_absmax": [_P, _L, _I, _P, _I, _P],
-    # x, in dtype, absmax, packed weight, weight scale, bias (or NULL), y,
-    # out dtype, geometry (19 ints), device, stream
-    "ddpm_qconv_s8": [_P, _I, _P, _P, _P, _P, _P, _I, _IP, _I, _P],
+    # x, dtype, absmax, codes, pixels, Cin, Cp, device, stream
+    "ddpm_quant_codes": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
+    # codes, absmax, packed weight, weight scale, bias (or NULL), y, out
+    # dtype, geometry (19 ints), device, stream
+    "ddpm_qconv_s8": [_P, _P, _P, _P, _P, _P, _I, _IP, _I, _P],
 }
 
 

@@ -13,15 +13,18 @@ Layouts are the JAX package's for activations: x is channels-last, (B,
 their per-output-channel scales reduce over dims 1 and up (JAX's kernels are
 (*window, Cin, Cout) and (I, O), reduced over all but the last axis).
 
-Two kernels serve ``qconv`` and ``qdot`` on the card, each beside its plain
-PyTorch version and counting its launches in ``.launches``:
+Three kernels serve ``qconv`` and ``qdot`` on the card, each beside its
+plain PyTorch version and counting its launches in ``.launches``:
 
 - ``quant_absmax`` (``csrc/quant_absmax.cu``): max|x| into a device scalar,
   so that the scale never leaves the card;
-- ``qconv_s8`` (``csrc/qconv_s8.cu``): the implicit-GEMM convolution, which
-  quantises the activation on load (``x / sx`` rounded half to even, clamped
-  to +-127) and multiplies it into the packed weight codes on the s8 tensor
-  cores. ``qdot`` is a 1x1 convolution over a (1, tokens, C) view.
+- ``quantize_codes`` (``csrc/quant_codes.cu``): the activation's int8 codes
+  under that scale (``x / sx`` rounded half to even, clamped to +-127), made
+  once a call, channels zero-padded to a multiple of 16;
+- ``qconv_s8`` (``csrc/qconv_s8.cu``): the implicit-GEMM convolution of those
+  codes with the packed weight codes on the warpgroup s8 tensor cores
+  (``wgmma``), dequantised in its epilogue. It launches ``quantize_codes``
+  first. ``qdot`` is a 1x1 convolution over a (1, tokens, C) view.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The plain s8 x s8 sum is exact: a float64
@@ -62,7 +65,9 @@ from . import _kernels
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
 # csrc/qconv_s8.cu's tiles: packed weights are zero-padded to these multiples
-TILE_N, TILE_K = 128, 64
+TILE_N, TILE_K = 128, 128
+# the codes' channels are zero-padded to this multiple (its 16-byte copies)
+CHANNEL_ALIGN = 16
 # the kernel's exactness limit on K = window x Cin: K * 127^2 < 2^31
 MAX_K = 133_000
 OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -182,9 +187,8 @@ def dequantize(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
 class Int8Weight:
     """A weight quantised per output channel: ``codes`` in its PyTorch layout
     ((Cout, Cin, *window), or (O, I) for a dense layer), ``scale`` (Cout,)
-    fp32, and on CUDA ``packed``, the codes as the kernel reads them:
-    (Cout, *window, Cin) flattened to (Cout, K), K-contiguous, zero-padded to
-    (a multiple of TILE_N, a multiple of TILE_K)."""
+    fp32, and on CUDA ``packed``, the codes as the kernel reads them
+    (``pack_weight``)."""
 
     codes: torch.Tensor
     scale: torch.Tensor
@@ -195,17 +199,46 @@ class Int8Weight:
         return tuple(self.codes.shape[2:])
 
 
+def padded_channels(cin: int) -> int:
+    """The codes' channel count for Cin channels: a multiple of CHANNEL_ALIGN."""
+    return -(-cin // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def tap_channels(cin: int) -> int:
+    """The packed weight's K run a window tap: Cin padded to a multiple of
+    TILE_K, so that each K slice the kernel loads is one tap's channels."""
+    return -(-cin // TILE_K) * TILE_K
+
+
+def pack_weight(codes: torch.Tensor) -> torch.Tensor:
+    """Weight codes (Cout, Cin, *window) as csrc/qconv_s8.cu reads them: rows
+    (Cout, *window, Cq) with each tap's channels zero-padded to Cq =
+    ``tap_channels(Cin)``, flattened to (Cout, Kp) and zero-padded to Np
+    rows, a multiple of TILE_N; then cut into (Np / TILE_N, Kp / TILE_K)
+    blocks of TILE_N rows by TILE_K bytes, each block contiguous with its
+    rows' 16-byte chunks in the 128-byte swizzle (chunk j of row r at chunk j
+    ^ (r % 8)): the shared-memory layout wgmma reads, placed by one bulk
+    copy. Returns the flat int8 tensor of Np * Kp bytes."""
+    cout, cin = codes.shape[:2]
+    rows = codes.permute((0,) + tuple(range(2, codes.dim())) + (1,))  # (Cout, *window, Cin)
+    rows = F.pad(rows, (0, tap_channels(cin) - cin)).reshape(cout, -1)
+    n, k = -(-cout // TILE_N) * TILE_N, rows.shape[1]
+    rows = F.pad(rows, (0, 0, 0, n - cout))
+    blocks = rows.reshape(n // TILE_N, TILE_N, k // TILE_K, 8, 16).permute(0, 2, 1, 3, 4)
+    # chunk p of swizzled row r holds chunk p ^ (r % 8)
+    r = torch.arange(TILE_N, device=codes.device)[:, None]
+    idx = (torch.arange(8, device=codes.device)[None, :] ^ (r % 8))[None, None, :, :, None]
+    return torch.gather(blocks, 3, idx.expand(blocks.shape)).contiguous().reshape(-1)
+
+
 def quantize_weight(weight: torch.Tensor) -> Int8Weight:
     """Per-output-channel int8 codes and scales of a conv or linear weight,
-    packed for the kernel when the weight lies on a CUDA card."""
+    packed for the kernel (``pack_weight``; a dense layer as a width-1
+    convolution) when the weight lies on a CUDA card."""
     codes, scale = quantize_int8(weight.detach(), axes=tuple(range(1, weight.dim())))
     packed = None
     if codes.device.type == "cuda":
-        rows = codes.permute((0,) + tuple(range(2, codes.dim())) + (1,)).reshape(codes.shape[0], -1)
-        n, k = rows.shape
-        packed = torch.zeros((-(-n // TILE_N) * TILE_N, -(-k // TILE_K) * TILE_K),
-                             dtype=torch.int8, device=codes.device)
-        packed[:n, :k] = rows
+        packed = pack_weight(codes if codes.dim() > 2 else codes.unsqueeze(-1))
     return Int8Weight(codes, scale, packed)
 
 
@@ -281,7 +314,7 @@ def quant_absmax(x: torch.Tensor) -> torch.Tensor:
             raise TypeError(f"quant_absmax: dtype {x.dtype} not in (float32, bfloat16)")
         if not x.is_contiguous() or x.numel() == 0:
             raise ValueError("quant_absmax: x must be contiguous and not empty")
-        out = torch.zeros((), dtype=torch.float32, device=x.device)
+        out = torch.empty((), dtype=torch.float32, device=x.device)  # zeroed by the call
         _kernels.call("ddpm_quant_absmax", x.data_ptr(), x.numel(),
                       _kernels.DTYPE_CODES[x.dtype], out.data_ptr(), device, stream)
         quant_absmax.launches += 1
@@ -291,6 +324,40 @@ def quant_absmax(x: torch.Tensor) -> torch.Tensor:
 
 
 quant_absmax.launches = 0
+
+
+def quantize_codes_reference(x: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``quantize_codes``: ``_codes`` under
+    ``scale_of(absmax)``, the channels zero-padded to ``padded_channels``."""
+    q = _codes(x, scale_of(absmax))
+    return F.pad(q, (0, padded_channels(x.shape[-1]) - x.shape[-1]))
+
+
+def quantize_codes(x: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor:
+    """The int8 codes of channels-last x (B, *spatial, Cin) under the
+    per-tensor scale of `absmax` (max|x|, a 0-dim fp32 tensor on x's device),
+    (B, *spatial, Cp) with the channels zero-padded to ``padded_channels``:
+    the plain version on the CPU, ``csrc/quant_codes.cu`` on a CUDA card
+    (counted in ``quantize_codes.launches``), which raises on anything else,
+    Cin not a multiple of 8 or x off a 16-byte boundary among it."""
+    if x.device.type == "cpu":
+        return quantize_codes_reference(x, absmax)
+    device, stream = _kernels.cuda_target(x, "quantize_codes")
+    if x.dtype not in _kernels.DTYPE_CODES:
+        raise TypeError(f"quantize_codes: x dtype {x.dtype} not in (float32, bfloat16)")
+    _check_loads(x, "quantize_codes")
+    _check_scalar(absmax, "absmax", 1, x.device, "quantize_codes")
+    cin = x.shape[-1]
+    codes = torch.empty(x.shape[:-1] + (padded_channels(cin),), dtype=torch.int8,
+                        device=x.device)
+    _kernels.call("ddpm_quant_codes", x.data_ptr(), _kernels.DTYPE_CODES[x.dtype],
+                  absmax.data_ptr(), codes.data_ptr(), x.numel() // cin, cin, codes.shape[-1],
+                  device, stream)
+    quantize_codes.launches += 1
+    return codes
+
+
+quantize_codes.launches = 0
 
 
 def qconv_s8_reference(x: torch.Tensor, absmax: torch.Tensor, w: Int8Weight,
@@ -306,6 +373,23 @@ def qconv_s8_reference(x: torch.Tensor, absmax: torch.Tensor, w: Int8Weight,
     return dequantize(acc, sx, w.scale, bias).to(out_dtype)
 
 
+def _check_loads(x: torch.Tensor, what: str) -> None:
+    """The codes kernel's 16-byte loads: 8 channels a load, from a
+    contiguous channels-last x on a 16-byte boundary."""
+    cin = x.shape[-1]
+    if cin % 8 != 0 or x.data_ptr() % 16 != 0:
+        raise ValueError(f"{what}: Cin ({cin}) must be a multiple of 8 and x must start "
+                         "on a 16-byte boundary")
+    if not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"{what}: x must be contiguous channel-last (B, *spatial, C), not empty")
+
+
+def _check_scalar(t: Optional[torch.Tensor], name: str, n: int, device, what: str) -> None:
+    if t is not None and (t.dtype != torch.float32 or t.numel() != n or t.device != device
+                          or not t.is_contiguous()):
+        raise ValueError(f"{what}: {name} must be {n} contiguous float32 on {device}")
+
+
 def _check_cuda_args(x, absmax, w, bias, strides, pads, out_dtype) -> None:
     nd = x.dim() - 2
     if x.dtype not in _kernels.DTYPE_CODES:
@@ -318,21 +402,13 @@ def _check_cuda_args(x, absmax, w, bias, strides, pads, out_dtype) -> None:
     cout, cin = w.codes.shape[:2]
     if x.shape[-1] != cin:
         raise ValueError(f"qconv_s8: x has {x.shape[-1]} channels, the weight {cin}")
-    if cin % 8 != 0 or x.data_ptr() % 16 != 0:  # the kernel's 16-byte loads
-        raise ValueError(f"qconv_s8: Cin ({cin}) must be a multiple of 8 and x must start "
-                         "on a 16-byte boundary")
+    _check_loads(x, "qconv_s8")
     if math.prod(w.window) * cin >= MAX_K:
         raise ValueError(f"qconv_s8: K = {math.prod(w.window) * cin} would overflow int32 sums")
-    if not x.is_contiguous():
-        raise ValueError("qconv_s8: x must be contiguous channel-last (B, *spatial, C)")
     if w.packed is None or w.packed.device != x.device:
         raise ValueError("qconv_s8: the weight is not packed on x's card (quantize_weight)")
     for name, t, n in (("absmax", absmax, 1), ("scale", w.scale, cout), ("bias", bias, cout)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or t.numel() != n or t.device != x.device \
-                or not t.is_contiguous():
-            raise ValueError(f"qconv_s8: {name} must be {n} contiguous float32 on {x.device}")
+        _check_scalar(t, name, n, x.device, "qconv_s8")
 
 
 def qconv_s8(x: torch.Tensor, absmax: torch.Tensor, w: Int8Weight,
@@ -342,9 +418,10 @@ def qconv_s8(x: torch.Tensor, absmax: torch.Tensor, w: Int8Weight,
     spatial dims, by a quantised weight, with the activation scale taken from
     `absmax` (max|x|, a 0-dim fp32 tensor) and (lo, hi) `pads` per axis.
     Returns (B, *out, Cout) in out_dtype (float32, bfloat16, or int32 for the
-    raw sums). The plain version on the CPU; ``csrc/qconv_s8.cu`` on a CUDA
-    card (counted in ``qconv_s8.launches``), which raises on anything else,
-    Cin not a multiple of 8 or x off a 16-byte boundary among it."""
+    raw sums). The plain version on the CPU; on a CUDA card
+    ``quantize_codes`` and then ``csrc/qconv_s8.cu`` (counted in
+    ``qconv_s8.launches``), which raise on anything else, Cin not a multiple
+    of 8 or x off a 16-byte boundary among it."""
     if x.device.type == "cpu":
         return qconv_s8_reference(x, absmax, w, bias, strides, pads, out_dtype)
     device, stream = _kernels.cuda_target(x, "qconv_s8")
@@ -354,14 +431,15 @@ def qconv_s8(x: torch.Tensor, absmax: torch.Tensor, w: Int8Weight,
     out = _out_spatial(spatial, window, strides, pads)
     if min(out) < 1:
         raise ValueError(f"qconv_s8: no output positions for {spatial} by {window}")
-    cout, cin = w.codes.shape[:2]
+    cout = w.codes.shape[0]
+    codes = quantize_codes(x, absmax)
     y = torch.empty((x.shape[0],) + out + (cout,), dtype=out_dtype, device=x.device)
     pad3 = lambda v, fill: (fill,) * (3 - nd) + tuple(v)  # noqa: E731 (2D as D = 1)
-    geo = ((x.shape[0],) + pad3(spatial, 1) + (cin,) + pad3(out, 1) + (cout,) + pad3(window, 1)
-           + pad3(strides, 1) + pad3([lo for lo, _ in pads], 0) + (w.packed.shape[1],))
-    _kernels.call("ddpm_qconv_s8", x.data_ptr(), _kernels.DTYPE_CODES[x.dtype],
-                  absmax.data_ptr(), w.packed.data_ptr(), w.scale.data_ptr(),
-                  None if bias is None else bias.data_ptr(), y.data_ptr(),
+    kp = w.packed.numel() // (-(-cout // TILE_N) * TILE_N)
+    geo = ((x.shape[0],) + pad3(spatial, 1) + (codes.shape[-1],) + pad3(out, 1) + (cout,)
+           + pad3(window, 1) + pad3(strides, 1) + pad3([lo for lo, _ in pads], 0) + (kp,))
+    _kernels.call("ddpm_qconv_s8", codes.data_ptr(), absmax.data_ptr(), w.packed.data_ptr(),
+                  w.scale.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
                   OUT_CODES[out_dtype], (ctypes.c_int * len(geo))(*geo), device, stream)
     qconv_s8.launches += 1
     return y

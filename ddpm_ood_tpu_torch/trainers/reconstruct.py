@@ -329,22 +329,29 @@ class Reconstruct(BaseTrainer):
         # batch by batch
         resuming = bool(getattr(self.args, "resume", 0)) and sink is not None
         for batch_idx, batch in enumerate(loader):
-            images = np.moveaxis(batch["image"], 1, -1)  # (B, *spatial, C)
+            real = np.moveaxis(batch["image"], 1, -1)  # (B, *spatial, C)
+            n_real = len(real)
+            # a ragged last batch is wrap-padded to the first batch's size and
+            # only its real rows are read back, as in the JAX CLI: the padded
+            # rows enter every int8 activation absmax, and the noise draw
+            first_b = first_b or n_real
+            images = (np.take(real, np.arange(first_b) % n_real, axis=0) if n_real < first_b
+                      else real)
             held = bool(sink is not None and sink.resumed_rows and len(
-                sink.done(batch["filename"], len(program.t_starts))) == len(images))
+                sink.done(batch["filename"], len(program.t_starts))) == n_real)
             if resuming and pmesh.process_count() > 1:
                 held = pmesh.all_processes(held, self.device)
             if held:
                 program.skip(images, generator)  # the noise it would have drawn
-                n_skipped += len(images)
+                n_skipped += n_real
                 continue
             profiler = None
             if self.profile_dir and batch_idx == 1 and self.profile_path is None and rank == 0:
                 profiler = start_trace(self.device)  # a warm batch: batch 0 pays the set-up
             t1 = time.perf_counter()
-            first_b = first_b or len(images)
             t_starts, *scores = program(images, generator, noise_batch=first_b)
-            by_name = {c: v.cpu().numpy() for c, v in zip(names, scores)}  # waits for the device
+            by_name = {c: v[:, :n_real].cpu().numpy()  # waits for the device
+                       for c, v in zip(names, scores)}
             if profiler is not None:
                 self.profile_path = stop_trace(profiler, self.device, self.profile_dir,
                                                f"scoring_{dataset_name}_batch1")
@@ -355,8 +362,8 @@ class Reconstruct(BaseTrainer):
                     row.update((c, float(by_name[c][k, b])) for c in self.columns[3:])
                     rows.append(row)
             if self.save_error_maps:
-                self._save_error_maps(program.last_error_maps.cpu().numpy(), batch["filename"],
-                                      save_name or dataset_name)
+                self._save_error_maps(program.last_error_maps[:n_real].cpu().numpy(),
+                                      batch["filename"], save_name or dataset_name)
             results.extend(rows)
             if sink is not None:
                 sink.append(rows)
@@ -364,9 +371,9 @@ class Reconstruct(BaseTrainer):
                     log.info(f"fault injection: SIGKILL after batch {batch_idx}")
                     os.kill(os.getpid(), signal.SIGKILL)
             secs = time.perf_counter() - t1
-            n = len(t_starts) * images.shape[0]
+            n = len(t_starts) * n_real  # the real rows' recons
             self.batch_times.append((n, secs))
-            log.info(f"Took {secs:.2f}s for a batch size of {images.shape[0]} "
+            log.info(f"Took {secs:.2f}s for a batch size of {n_real} "
                      f"({n / secs:.1f} recons/s)")
             if not preview_saved and rank == 0:
                 # one name per get_scores call: every out dataset is "out"

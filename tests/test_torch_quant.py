@@ -116,6 +116,74 @@ def test_quantize_int8_per_output_channel_matches_jax(window):
     assert s[0].item() == 1.0 and not q[0].any() and s[1].item() == 1.0
 
 
+@pytest.mark.parametrize("kind", ["uniform", "ties", "zeros"])
+def test_quantize_codes_plain_matches_jax(kind):
+    """``quantize_codes``' plain version (the codes csrc/quant_codes.cu makes,
+    channels zero-padded to a multiple of 16) on ``quant_absmax``'s scalar:
+    the real channels bit for bit JAX's jitted per-tensor codes, the scale
+    JAX's, the padding zero; half to even on .5 ties, 0 codes at scale 1 on
+    zeros."""
+    rng = np.random.default_rng(5)
+    shape = (2, 3, 5, 24)  # Cin 24: padded to 32
+    x = {"uniform": rng.normal(size=shape).astype(np.float32) * 3,
+         "ties": with_ties(rng, shape),
+         "zeros": np.zeros(shape, np.float32)}[kind]
+    xt = torch.from_numpy(x)
+    before = quant.quantize_codes.launches
+    codes = quant.quantize_codes(xt, quant.quant_absmax(xt))
+    assert quant.quantize_codes.launches == before  # the plain version on the CPU
+    jq, js = jquantize(jnp.asarray(x))
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == shape[:-1] + (32,)
+    np.testing.assert_array_equal(codes[..., :24].numpy(), np.asarray(jq))
+    assert not codes[..., 24:].any()
+    assert quant.scale_of(quant.quant_absmax(xt)).item() == float(js)
+    if kind == "ties":
+        halves = np.abs(x - np.trunc(x)) == 0.5
+        assert halves.sum() > 30 and np.all(codes[..., :24].numpy()[halves] % 2 == 0)
+    if kind == "zeros":
+        assert not codes.any()
+
+
+def _unpack(packed: np.ndarray, cout: int, cin: int, taps: int) -> np.ndarray:
+    """csrc/qconv_s8.cu's weight blocks back to (Cout, Cin, taps) codes: the
+    row-r 16-byte chunk stored at position p is chunk p ^ (r % 8); each tap
+    holds Cin channels padded to a multiple of 128."""
+    cq, n = -(-cin // 128) * 128, -(-cout // 128) * 128
+    blocks = packed.reshape(n // 128, taps * cq // 128, 128, 8, 16)
+    r = np.arange(128)[:, None]
+    blocks = np.take_along_axis(blocks, (np.arange(8)[None, :] ^ (r % 8))[None, None, :, :, None],
+                                axis=3)
+    rows = blocks.transpose(0, 2, 1, 3, 4).reshape(n, taps, cq)
+    return rows[:cout, :, :cin].transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("window", [(3, 3), (1, 1), (3, 3, 3), ()])
+def test_packed_weight_decodes_to_jax_codes(window):
+    """``quantize_weight``'s codes as ``pack_weight`` packs them for
+    csrc/qconv_s8.cu on a card (each tap's channels zero-padded to 128, 128
+    x 128-byte blocks in the 128-byte swizzle), decoded back, are JAX's
+    per-output-channel codes; one code is found where the kernel's
+    shared-memory layout puts it, and every padding byte is zero. Cout 130
+    and Cin 136 cross a block edge."""
+    rng = np.random.default_rng(6)
+    cout, cin = 130, 136
+    w = (rng.normal(size=(cout, cin) + window) * 0.2).astype(np.float32)
+    wq = quant.quantize_weight(torch.from_numpy(w))
+    packed = quant.pack_weight(wq.codes if window else wq.codes.unsqueeze(-1)).numpy()
+    jk = to_jax_kernel(w) if window else w.T.copy()
+    jq, _ = jquantize(jnp.asarray(jk), tuple(range(jk.ndim - 1)))
+    want = np.asarray(jq)
+    want = np.moveaxis(np.moveaxis(want, -1, 0), -1, 1) if window else want.T
+    taps = int(np.prod(window)) if window else 1
+    assert packed.dtype == np.int8 and packed.size == 256 * taps * 256
+    np.testing.assert_array_equal(_unpack(packed, cout, cin, taps),
+                                  want.reshape(cout, cin, taps))
+    # output channel 5, tap 0, channel 17: K byte 17 of row 5 of block (0, 0),
+    # 16-byte chunk 1 stored at chunk 1 ^ (5 % 8) = 4
+    assert packed[5 * 128 + 4 * 16 + 1] == want.reshape(cout, cin, -1)[5, 17, 0]
+    assert int(np.abs(packed.astype(np.int64)).sum()) == int(np.abs(want).sum())
+
+
 def _conv_inputs(case, seed=2):
     shape, cout, k, stride, padding = case
     nd = len(shape) - 2
@@ -202,7 +270,8 @@ def test_plain_versions_on_the_cpu_launch_no_kernel():
     """On CPU tensors the wrappers take their plain versions: the launch
     counters stay put, and qconv_s8's int32 mode returns the exact sums."""
     x, w, b, strides, padding = _conv_inputs(CONV_CASES[0])
-    before = (quant.quant_absmax.launches, quant.qconv_s8.launches)
+    before = (quant.quant_absmax.launches, quant.quantize_codes.launches,
+              quant.qconv_s8.launches)
     xt = torch.from_numpy(x)
     absmax = quant.quant_absmax(xt)
     assert absmax.item() == np.abs(x).max()
@@ -214,7 +283,8 @@ def test_plain_versions_on_the_cpu_launch_no_kernel():
     assert torch.equal(sums, quant.s8_conv_sum(xq, wq.codes, strides, pads))
     y = quant.qconv_s8(xt, absmax, wq, torch.from_numpy(b), strides, pads, torch.bfloat16)
     assert y.dtype == torch.bfloat16
-    assert (quant.quant_absmax.launches, quant.qconv_s8.launches) == before
+    assert (quant.quant_absmax.launches, quant.quantize_codes.launches,
+            quant.qconv_s8.launches) == before
 
 
 def test_weight_cache_follows_in_place_writes_and_new_storage():

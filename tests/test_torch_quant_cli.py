@@ -107,13 +107,13 @@ def _split(root, name: str, n: int, ood: bool, rng) -> str:
     return str(root / f"{name}.csv")
 
 
-def make_run(root, params):
-    """A validation split of 8 images of 8x8, a checkpoint of the JAX tree
-    `params` and an LPIPS npz; the scoring CLI's argv: batch 8, PLMS 10/5
-    (2 start points) in one lane group, --quantize=int8. XLA's s8
+def make_run(root, params, n_val: int = 8):
+    """A validation split of `n_val` images of 8x8, a checkpoint of the JAX
+    tree `params` and an LPIPS npz; the scoring CLI's argv: batch 8, PLMS
+    10/5 (2 start points) in one lane group, --quantize=int8. XLA's s8
     convolution is slow on the CPU (~6 s a batch at 16x16 and 4 start
     points), so the run is small."""
-    val = _split(root, "val", 8, False, np.random.default_rng(0))
+    val = _split(root, "val", n_val, False, np.random.default_rng(0))
     run = root / "output" / MODEL
     run.mkdir(parents=True)
     save_checkpoint(run / "checkpoint.pth", jax_unet_params_to_state_dict(params), epoch=3)
@@ -127,10 +127,12 @@ def make_run(root, params):
             "--quantize=int8"]
 
 
-def _jax_program_scores(params, images, npz, sites: list) -> tuple:
+def _jax_program_scores(params, images, npz, sites: list, more=()) -> tuple:
     """(t_starts, mse (K, B), perceptual (K, B)) of JAX's quantised program
     as its CLI builds it, on `images` with the shared noise; the input of
-    every QuantConv and QuantDense call appended to `sites` in call order."""
+    every QuantConv and QuantDense call appended to `sites` in call order.
+    With `more` batches, a tuple of such triples: the same program on
+    `images`, then on each of them."""
     import flax.linen as fnn
     import jax
     import jax.numpy as jnp
@@ -159,8 +161,11 @@ def _jax_program_scores(params, images, npz, sites: list) -> tuple:
         perceptual_fn=PerceptualLoss(dimensions=2, lpips_normalize=True,
                                      params=load_lpips_npz(str(npz))),
         latent_sample_shape=(SIZE, SIZE, 1), overlap_host_noise=False)
-    t, mse, perc = program(jnp.asarray(images), jax.random.PRNGKey(0))
-    return np.asarray(t), np.asarray(mse), np.asarray(perc)
+    out = []
+    for batch in (images, *more):
+        t, mse, perc = program(jnp.asarray(batch), jax.random.PRNGKey(0))
+        out.append((np.asarray(t), np.asarray(mse), np.asarray(perc)))
+    return tuple(out) if more else out[0]
 
 
 class TieRepair:
@@ -261,6 +266,56 @@ def test_quantised_sweep_matches_jax(int8_run):
         got = np.array([[float(rows[f, int(t)][col]) for f in filenames] for t in t_starts])
         assert want.shape == (2, 8) and np.isfinite(got).all() and (got > 0).all()
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=0, err_msg=col)
+
+
+@pytest.fixture(scope="module")
+def ragged_run(tmp_path_factory):
+    """The int8 CLI on 10 validation images at batch 8: the second batch's 2
+    real images are wrap-padded to 8, as the JAX CLI pads a ragged batch,
+    so its padded rows enter every activation absmax. JAX's program runs on
+    the first batch, then on the padded second one."""
+    from ddpm_ood_tpu.models.unet import make_unet as jax_make_unet
+
+    root = tmp_path_factory.mktemp("quant_ragged")
+    params = seeded_params(jax_make_unet("tiny", 2, 1, 1), 2, SIZE)
+    argv = make_run(root, params, n_val=10)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LPIPS_WEIGHTS_NPZ", str(root / "lpips.npz"))
+        args = cli.parse_args(argv)
+        recon = cli.Reconstruct(args, CPU)
+        recon._program(args.inference_skip_factor).host_noise_fn = host_noise
+        batches = list(recon._make_loader(args.validation_ids, None))
+        assert [len(b["filename"]) for b in batches] == [8, 2]
+        images = [np.moveaxis(b["image"], 1, -1) for b in batches]
+        padded = np.take(images[1], np.arange(8) % 2, axis=0)
+        sites = []
+        want = _jax_program_scores(params, images[0], root / "lpips.npz", sites, more=(padded,))
+        repair = TieRepair(recon.unet, sites)
+        recon.reconstruct(args)
+        repair.remove()
+    print(f"ragged int8 sweep: {repair.calls} quantised calls, {repair.flips} codes flipped "
+          f"at a .5 tie in {repair.repaired} of them")
+    return root, [[Path(f).stem for f in b["filename"]] for b in batches], want, sites, repair
+
+
+def test_ragged_int8_batch_is_wrap_padded_as_jax(ragged_run):
+    """The CSV's scores of both batches, the ragged one's 2 real images
+    included, against JAX's quantised program on the first batch and on the
+    wrap-padded second batch at RTOL, every quantised call of both checked
+    against JAX's (TieRepair): a port that quantised the 2 real rows alone
+    would take another absmax at every site."""
+    root, names, want, sites, repair = ragged_run
+    assert repair.calls == len(sites) > 0
+    rows = {(r["filename"], int(r["t"])): r
+            for r in _read(root / "output" / MODEL / "ood" / "results_val.csv")}
+    assert len(rows) == 2 * 10
+    for filenames, (t_starts, mse, perc) in zip(names, want):
+        b = len(filenames)
+        for col, full in (("mse", mse), ("perceptual_difference", perc)):
+            got = np.array([[float(rows[f, int(t)][col]) for f in filenames] for t in t_starts])
+            assert full.shape == (2, 8) and np.isfinite(got).all() and (got > 0).all()
+            np.testing.assert_allclose(got, full[:, :b], rtol=RTOL, atol=0,
+                                       err_msg=f"{col}, batch of {b}")
 
 
 def _per_image(x: torch.Tensor) -> torch.Tensor:
