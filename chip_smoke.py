@@ -15,9 +15,11 @@ Phases, each fatal on failure:
                  shared-memory lines, and fails if a tensor-core kernel spills
                  or if qconv_s8's SASS (cuobjdump) holds no warpgroup MMA.
   3. kernels  -- every kernel (GroupNorm on thread-block clusters, and the
-                 one-block-per-group GroupNorm at a sample too large for a
-                 cluster; flash forward, flash backward dK/dV and dQ, bf16 on
-                 tensor cores, fp32 on CUDA cores; int8 scoring's absmax,
+                 large-sample GroupNorm at samples too large for a cluster
+                 (GN_LARGE), x off a 16-byte boundary and rows of odd
+                 widths (GN_EDGE), its two launches bitwise equal; flash
+                 forward, flash backward dK/dV and dQ, bf16 on tensor
+                 cores, fp32 on CUDA cores; int8 scoring's absmax,
                  activation codes and s8 x s8 -> s32 convolution, whose
                  absmax, codes, int32 sums and fp32 and bf16 outputs must
                  equal the plain version's exactly at QCONV_SHAPES, beside
@@ -91,7 +93,7 @@ Phases, each fatal on failure:
                  (lattice hashes equal, planes within 1e-5); an fp32 small-UNet
                  sweep on one host simplex draw, card against CPU; the scoring
                  CLI at the main path's configuration with exact noise on
-                 two splits and device noise on the val split alone
+                 the val split and device noise on the out split
                  (recons/s beside the main phase's Gaussian run,
                  host seconds making noise and waiting for it, 27 GroupNorm and
                  4 flash launches per forward, previews); a crash after batch
@@ -121,13 +123,28 @@ Phases, each fatal on failure:
                  reference's Decathlon geometry (128^3 x 1 volumes, 8^3 x 128
                  latents; seeded VQ-VAE checkpoint.pth with its
                  vqvae_config.json, seeded small 3D UNet), batch 2, LPIPS from
-                 the npz, --score_ssim=1 --save_error_maps=1: PLMS 100/2, then
+                 the npz, --score_ssim=1 --save_error_maps=1: PLMS 50/2, then
                  --sampler=dpm 25/1. Checks finite non-zero columns, 3D error
                  maps, 27 GroupNorm (cluster) and 4 flash (tensor-core)
                  launches per UNet forward, run_ood_detection on the CSVs;
                  prints latent-recons/s, the device seconds of encode, UNet
                  forwards, decode and metrics tail (CUDA events), and peak
                  device memory.
+ 15b. brats   -- the scoring CLI at the BraTS ROI geometry (BRATS_ARGS: 176x176x136
+                 volumes cropped to 160x160x128, not resized; a VQ-VAE of
+                 three 256-channel levels, (20, 20, 16, 128) latents; the
+                 small 3D UNet; PLMS 100/16 in 3 lane groups, batch 8). First
+                 one UNet forward at the sweep's 24 rows through the kernels
+                 against the plain versions on the card (fp32), and the
+                 GroupNorm shapes of a bf16 forward, from which the dispatch
+                 predicts each forward's launches (2 large-sample, 25
+                 cluster); then the CLI on two val batches and one in and
+                 one out: finite CSVs, every forward's launches as
+                 predicted, val's batch 1 traced (--profile_dir: device busy
+                 and idle shares, GroupNorm's and attention's shares of the
+                 device time), latent-recons/s of the warm untraced batches,
+                 CUDA-event spans of UNet forwards, encode, decode and
+                 metrics tail, and peak device memory.
  16. vqvae step, train ldm -- latent-diffusion training: one VQ-VAE +
                  PatchGAN step and one 3D LDM step card against CPU; then
                  train_vqvae and train_ddpm --vqvae_checkpoint at the
@@ -245,15 +262,27 @@ GN_SHAPES = [(1024, 128), (1024, 256), (1024, 384), (256, 128), (256, 256),
              (256, 384), (256, 512), (64, 256), (64, 512),
              (512, 128), (512, 256), (512, 384), (512, 512), (64, 128), (64, 384),
              (8, 256), (8, 512)]
-# a sample over 8 blocks' shared memory in both dtypes (2 MB in bf16): the
-# one-block-per-group kernel of csrc/groupnorm.cu
-GN_OVERSIZED = [(4096, 256)]
-# and one of 4.9 MB in bf16: a 384-channel level-0 sample of 20x20x16 latents
-GN_OVERSIZED_LDM = (6400, 384)
+# (B, N, C) of samples over 8 blocks' shared memory, the large-sample kernel of
+# csrc/groupnorm.cu: the 3D small UNet's level-0 GroupNorms over the
+# concatenated 384 and 256 channels on 20x20x16 latents (the BraTS ROI over
+# 8), at batch 64 and at the sweep's lane groups (3 and 2 lanes of 8
+# volumes), then the 2D small UNet's level 0 at 64x64
+GN_LARGE = [(64, 6400, 384), (64, 6400, 256), (24, 6400, 384), (24, 6400, 256),
+            (16, 6400, 384), (16, 6400, 256), (64, 4096, 256), (64, 4096, 384)]
+GN_LARGE_SUMMARY = (64, 6400, 384)
+# (name, B, N, C, G, element offset of x, {dtype: the large kernel's load
+# bytes, or None for the cluster kernel}) of shapes the cluster kernel
+# refuses for another reason, taken by the same kernel on narrower loads: x
+# off a 16-byte boundary (2-byte loads in bf16, 4-byte in fp32), an odd C
+# (66- and 132-byte rows), 72-byte rows (8-byte loads in bf16; fp32's 144
+# bytes are whole vectors, which the cluster kernel takes)
+GN_EDGE = [("unaligned", 8, 1024, 128, 32, 1, {"bf16": 2, "fp32": 4}),
+           ("odd C", 8, 2000, 33, 3, 0, {"bf16": 2, "fp32": 4}),
+           ("72-byte rows", 8, 2000, 36, 4, 0, {"bf16": 8, "fp32": None})]
 GN_LDM = (512, 384)  # the summary's latent-diffusion GroupNorm shapes: level 0,
 GN_LDM_DEEPEST = (8, 512)  # and the deepest level's concatenated skip
 # the spatial shape of N rows, for the library call's (B, C, *spatial) view
-GN_SPATIAL = {512: (8, 8, 8), 8: (2, 2, 2), 6400: (20, 20, 16)}
+GN_SPATIAL = {512: (8, 8, 8), 8: (2, 2, 2), 6400: (20, 20, 16), 2000: (2000,)}
 # (B*H, N, D): scoring's K*B = 64, training's batch of 128, and ragged ones: N
 # past a 64-key tile at D = 256, two key tiles at a D that pads to 64, three
 # at a D that pads to 128, and 16 key tiles at D = 64; then the 3D small
@@ -369,54 +398,81 @@ def phase_kernels(dev: torch.device) -> dict:
         flash_attention_bwd_reference, flash_attention_fwd,
     )
     from ddpm_ood_tpu_torch.ops.groupnorm import (
-        cluster_plan, groupnorm_act, groupnorm_act_reference,
+        groupnorm_act, groupnorm_act_reference, kernel_for,
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    summary, gn_ldm, attn_ldm, attn_ldm_train = {}, {}, {}, {}
-    worst = 0.0
-    oversized = GN_OVERSIZED + [GN_OVERSIZED_LDM]
+    summary, gn_ldm, gn_large, attn_ldm, attn_ldm_train = {}, {}, {}, {}, {}
+    worst = {"cluster": 0.0, "large": 0.0}
+    cases = ([("", 64, n, c, 32, 0, {"bf16": None, "fp32": None}) for n, c in GN_SHAPES]
+             + [("", b, n, c, 32, 0, {"bf16": 16, "fp32": 16}) for b, n, c in GN_LARGE]
+             + GN_EDGE)
     for dtype in (torch.float32, torch.bfloat16):
-        for n, c in GN_SHAPES + oversized:
+        for name, b, n, c, g, offset, loads in cases:
             spatial = GN_SPATIAL.get(n, (math.isqrt(n),) * 2)
-            x = (torch.rand((64, n, c), generator=gen, device=dev) * 2 - 1).to(dtype)
+            x = (torch.rand((b * n * c + offset,), generator=gen, device=dev) * 2 - 1).to(dtype)
+            x = x[offset:].view(b, n, c)
             gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
             beta = torch.rand((c,), generator=gen, device=dev) - 0.5
-            plan = cluster_plan(n, c, 32, x.element_size())
-            if (plan is None) != ((n, c) in oversized):
-                raise PhaseError(f"groupnorm N={n} C={c} {dtype}: cluster plan {plan}")
-            kernel = f"cluster of {plan[0]}" if plan else "one block per group"
+            kernel, plan = kernel_for(n, c, g, x.element_size(), x.data_ptr())
+            want = loads["bf16" if dtype == torch.bfloat16 else "fp32"]
+            if (kernel, plan.vec_bytes if kernel == "large" else None) != (
+                    "large" if want else "cluster", want):
+                raise PhaseError(f"groupnorm B={b} N={n} C={c} {dtype} {name}: {kernel} kernel "
+                                 f"({plan}), expected the "
+                                 + (f"large kernel on {want}-byte loads" if want else
+                                    "cluster kernel"))
+            shown = (f"cluster of {plan[0]}" if kernel == "cluster" else
+                     f"large: {plan.tiles} tiles of {plan.rows} rows, "
+                     f"{plan.vec_bytes}-byte loads, {'resident' if plan.resident else 'streamed'}")
             for act in ("none", "silu"):
-                before = (groupnorm_act.launches, groupnorm_act.cluster_launches)
-                got = groupnorm_act(x, gamma, beta, 32, 1e-6, act)
+                before = (groupnorm_act.launches, groupnorm_act.cluster_launches,
+                          groupnorm_act.large_launches)
+                got = groupnorm_act(x, gamma, beta, g, 1e-6, act)
                 moved = (groupnorm_act.launches - before[0],
-                         groupnorm_act.cluster_launches - before[1])
-                if moved != (1, int(plan is not None)):
+                         groupnorm_act.cluster_launches - before[1],
+                         groupnorm_act.large_launches - before[2])
+                if moved != (1, int(kernel == "cluster"), int(kernel == "large")):
                     raise PhaseError(f"groupnorm N={n} C={c} {dtype}: launches moved by "
-                                     f"{moved}, the plan is {plan}")
-                ref = groupnorm_act_reference(x, gamma, beta, 32, 1e-6, act)
+                                     f"{moved} for the {kernel} kernel")
+                ref = groupnorm_act_reference(x, gamma, beta, g, 1e-6, act)
+                again = groupnorm_act(x, gamma, beta, g, 1e-6, act) if kernel == "large" else got
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise PhaseError(f"groupnorm N={n} C={c} {dtype} {act}: two launches of the "
+                                     "large-sample kernel differ")
                 err = (got.float() - ref.float()).abs().max().item()
-                ms = time_cuda(lambda: groupnorm_act(x, gamma, beta, 32, 1e-6, act))
-                plain = time_cuda(lambda: groupnorm_act_reference(x, gamma, beta, 32, 1e-6, act))
-                lib = None
-                if act == "none":  # F.group_norm on the same memory: a channels-last
-                    nd = len(spatial)  # (B, C, *spatial) view of (B, N, C)
-                    xl = x.reshape((64,) + spatial + (c,)).permute(
-                        (0, nd + 1) + tuple(range(1, nd + 1)))
-                    g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
-                    lib = time_cuda(lambda: F.group_norm(xl, 32, g_lib, b_lib, 1e-6))
-                log(f"groupnorm B=64 N={n} {spatial} C={c} G=32 {act:4s} {str(dtype)[6:]:8s} "
-                    f"({kernel}) "
-                    f"max_abs_err={err:.3e} tol={GN_TOL[dtype]:.0e} kernel={ms:.4f} ms "
-                    f"plain={plain:.4f} ms library="
-                    + (f"{lib:.4f} ms" if lib is not None else "-")
+                timed = not name and (kernel == "cluster" or dtype == torch.bfloat16
+                                      or (b, n, c) == GN_LARGE_SUMMARY)
+                ms = plain = lib = None
+                if timed:
+                    # the yardsticks of a large sample take milliseconds: fewer runs
+                    few = {"iters": 5, "reps": 3} if kernel == "large" else {}
+                    ms = time_cuda(lambda: groupnorm_act(x, gamma, beta, g, 1e-6, act))
+                    plain = time_cuda(lambda: groupnorm_act_reference(x, gamma, beta, g, 1e-6,
+                                                                      act), **few)
+                    if act == "none":  # F.group_norm on the same memory: a channels-last
+                        nd = len(spatial)  # (B, C, *spatial) view of (B, N, C)
+                        xl = x.reshape((b,) + spatial + (c,)).permute(
+                            (0, nd + 1) + tuple(range(1, nd + 1)))
+                        g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
+                        lib = time_cuda(lambda: F.group_norm(xl, g, g_lib, b_lib, 1e-6), **few)
+                fmt = lambda v: f"{v:.5f} ms" if v is not None else "-"  # noqa: E731
+                log(f"groupnorm B={b} N={n} {spatial} C={c} G={g} {act:4s} {str(dtype)[6:]:8s} "
+                    f"{name + ' ' if name else ''}({shown}) "
+                    f"max_abs_err={err:.3e} tol={GN_TOL[dtype]:.0e} kernel={fmt(ms)} "
+                    f"plain={fmt(plain)} library={fmt(lib)}"
+                    + (" bitwise equal over two launches" if kernel == "large" else "")
                     + f" {'ok' if err <= GN_TOL[dtype] else 'FAIL'}")
-                _check("groupnorm", err, GN_TOL[dtype], f"N={n} C={c} {act} {dtype}")
-                worst = max(worst, err)
+                _check(f"groupnorm ({kernel})", err, GN_TOL[dtype], f"N={n} C={c} {act} {dtype}")
+                worst[kernel] = max(worst[kernel], err)
+                if not timed:
+                    continue
                 row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                        **bound(2 * x.numel() * x.element_size() + 2 * c * 4,
                                8 * x.numel(), dtype)}
+                if kernel == "large":
+                    gn_large[f"{b}x{n}x{c} {str(dtype)[6:]} {act}"] = row
                 if act == "none" and dtype == torch.bfloat16:
                     if (n, c) == (1024, 384):
                         summary["groupnorm_act"] = row
@@ -424,9 +480,10 @@ def phase_kernels(dev: torch.device) -> dict:
                         gn_ldm["ldm"] = {"shape": [64, n, c], **row}
                     elif (n, c) == GN_LDM_DEEPEST:
                         gn_ldm["ldm_deepest"] = {"shape": [64, n, c], **row}
-                    elif (n, c) == GN_OVERSIZED_LDM:
-                        gn_ldm["ldm_one_block_per_group"] = {"shape": [64, n, c], **row}
-    summary["groupnorm_act"].update(gn_ldm, max_abs_err=worst)
+                    elif (b, n, c) == GN_LARGE_SUMMARY:
+                        summary["groupnorm_act_large"] = {"shape": [b, n, c], **row}
+    summary["groupnorm_act"].update(gn_ldm, max_abs_err=worst["cluster"])
+    summary["groupnorm_act_large"].update(by_shape=gn_large, max_abs_err=worst["large"])
 
     names = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     worst = {name: 0.0 for name in names}  # max abs error, both dtypes
@@ -748,11 +805,15 @@ def quant_kernels(dev: torch.device) -> dict:
     return summary
 
 
-# the main path runs bf16: GroupNorm on the cluster kernel, attention on the
-# tensor-core kernels
+# the main path runs bf16: GroupNorm on the cluster kernel (the large-sample
+# kernel where a sample outgrows a cluster), attention on the tensor-core
+# kernels
 KERNELS = {
     "groupnorm_act": ("ddpm_ood_tpu_torch/csrc/groupnorm_cluster.cu",
                       "ddpm_ood_tpu/ops/groupnorm.py:58"),
+    # samples over 8 blocks' shared memory (the 3D latents at 20x20x16)
+    "groupnorm_act_large": ("ddpm_ood_tpu_torch/csrc/groupnorm.cu",
+                            "ddpm_ood_tpu/ops/groupnorm.py:58"),
     "flash_attention_fwd": ("ddpm_ood_tpu_torch/csrc/attention_fwd_tc.cu",
                             "ddpm_ood_tpu/ops/attention.py:51"),
     "flash_attention_bwd_dkv": ("ddpm_ood_tpu_torch/csrc/attention_bwd_tc.cu",
@@ -1743,14 +1804,17 @@ SAMPLER_COLUMNS = ("mse", "perceptual_difference", "elbo")
 SAMPLER_PROGRAMS = (("ddim", True), ("dpm", True), ("plms_ref", False), ("plms", True))
 
 
-def _check_launches(launches: dict, evals: int, what: str, bf16: bool) -> None:
+def _check_launches(launches: dict, evals: int, what: str, bf16: bool,
+                    large_per_forward: int = 0) -> None:
     """27 GroupNorms and 4 flash forwards per UNet forward and no backward;
-    in bf16 every GroupNorm on the cluster kernel and every flash forward on
+    in bf16 `large_per_forward` GroupNorms a forward on the large-sample
+    kernel, the others on the cluster kernel, and every flash forward on
     tensor cores."""
     want = {"groupnorm_act": GN_PER_FORWARD * evals,
             "flash_attention_fwd": ATTN_PER_FORWARD * evals}
     if bf16:
-        want.update(groupnorm_act_cluster=GN_PER_FORWARD * evals,
+        want.update(groupnorm_act_cluster=(GN_PER_FORWARD - large_per_forward) * evals,
+                    groupnorm_act_large=large_per_forward * evals,
                     flash_attention_fwd_tc=ATTN_PER_FORWARD * evals)
     got = {k: launches[k] for k in want}
     backward = {k: v for k, v in launches.items() if "bwd" in k and v}
@@ -1896,7 +1960,9 @@ LDM_ARGS = ["--spatial_dimension=3", "--model_type=small", "--image_roi=[160,160
             f"--image_size={LDM_SIZE}", "--is_grayscale=1", "--prediction_type=epsilon",
             "--beta_schedule=scaled_linear_beta",
             "--beta_start=0.0015", "--beta_end=0.0195", "--b_scale=1.0"]
-LDM_GRIDS = (("plms", ["--num_inference_steps=100", "--inference_skip_factor=2"]),
+# (PLMS on the reference recipe's skip factor over a grid of 50, not 100,
+# steps: half the forwards; the BraTS-ROI phase runs the 100-step grid)
+LDM_GRIDS = (("plms", ["--num_inference_steps=50", "--inference_skip_factor=2"]),
              ("dpm", ["--sampler=dpm", "--num_inference_steps=25",
                       "--inference_skip_factor=1"]))
 # the fp32 card-vs-CPU checks run the VQ-VAE on 32^3 volumes (2^3 latents,
@@ -1908,12 +1974,13 @@ LDM_CHECK_SIZE, LDM_CHECK_PAD = 32, (1, 1, 1, 1, 1, 1)
 TIE_MARGIN = 1e-5
 
 
-def _ldm_vqvae(seed: int = 0):
-    """The seeded Decathlon VQ-VAE, on the CPU, in eval mode."""
+def _ldm_vqvae(seed: int = 0, config: dict = LDM_VQVAE):
+    """The seeded Decathlon VQ-VAE (or one of `config`), on the CPU, in eval
+    mode."""
     from ddpm_ood_tpu_torch.models.vqvae import VQVAE
 
     torch.manual_seed(seed)
-    vq = VQVAE(**LDM_VQVAE).eval()
+    vq = VQVAE(**config).eval()
     # the default init decodes to values about 0.1 wide just below 0, which
     # the clip to [0, 1] before the metrics flattens to 0: spread them 8x and
     # centre them inside (0, 1), so the scores depend on what was decoded
@@ -1933,17 +2000,19 @@ def _ldm_models(seed: int = 0):
     return vq, unet.eval()
 
 
-def _volumes(n: int, size: int, ood: bool, rng) -> np.ndarray:
-    """(n, 1, size, size, size) volumes: smooth 3D sine fields, or 3D
-    checkerboards of 4-voxel cells."""
-    zz, yy, xx = np.meshgrid(*(np.arange(size),) * 3, indexing="ij")
+def _volumes(n: int, size, ood: bool, rng) -> np.ndarray:
+    """(n, 1, size, size, size) volumes, or (n, 1, *size) for a tuple:
+    smooth 3D sine fields, or 3D checkerboards of 4-voxel cells."""
+    shape = (size,) * 3 if isinstance(size, int) else tuple(size)
+    zz, yy, xx = np.meshgrid(*(np.arange(s) for s in shape), indexing="ij")
     out = []
     for i in range(n):
         if ood:
             v = (((xx // 4) + (yy // 4) + (zz // 4) + i) % 2).astype(np.float32)
         else:
             phase = rng.uniform(0, 2 * np.pi)
-            v = 0.5 + 0.5 * np.sin(2 * np.pi * (xx + yy + zz) / size + phase)
+            v = 0.5 + 0.5 * np.sin(2 * np.pi * (zz / shape[0] + yy / shape[1] + xx / shape[2])
+                                   + phase)
         out.append(v.astype(np.float32)[None])
     return np.stack(out)
 
@@ -2111,11 +2180,12 @@ def phase_ldm_pieces(dev: torch.device, npz: Path) -> None:
     log(f"ldm: card-vs-CPU checks took {time.perf_counter() - t0:.1f} s")
 
 
-def _write_volumes(root: Path, name: str, n: int, ood: bool, rng) -> Path:
-    """n LDM_SIZE^3 volumes (``_volumes``) as .npy and their single-row split CSV."""
+def _write_volumes(root: Path, name: str, n: int, ood: bool, rng, size=LDM_SIZE) -> Path:
+    """n LDM_SIZE^3 volumes (or of `size`, ``_volumes``) as .npy and their
+    single-row split CSV."""
     (root / name).mkdir(parents=True)
     paths = []
-    for i, v in enumerate(_volumes(n, LDM_SIZE, ood, rng)):
+    for i, v in enumerate(_volumes(n, size, ood, rng)):
         paths.append(str(root / name / f"{name}_{i}.npy"))
         np.save(paths[-1], v)
     (root / f"{name}.csv").write_text(",".join(paths))
@@ -2133,8 +2203,9 @@ def _scalars(path: Path) -> dict:
 
 def _ldm_cli(argv: list):
     """One latent scoring CLI run in this process with its program's encode,
-    UNet, decode and metrics tail timed on the device; returns (Reconstruct,
-    launches, device seconds by part, wall seconds, peak GiB)."""
+    UNet, decode and metrics tail timed between CUDA events (a span holds
+    the device's idle time between its events too); returns (Reconstruct,
+    launches, event seconds by part, wall seconds, peak GiB)."""
     from ddpm_ood_tpu_torch import reconstruct as cli
     from ddpm_ood_tpu_torch.recon import sweep as sweep_mod
 
@@ -2161,7 +2232,7 @@ def _ldm_cli(argv: list):
 
 def phase_ldm(dev: torch.device, root: Path, batch: int = LDM_BATCH) -> dict:
     """The scoring CLI on a 3D latent diffusion model at the Decathlon
-    geometry: PLMS 100/2 and DPM-Solver++ 25/1, LPIPS from the npz, SSIM and
+    geometry: PLMS 50/2 and DPM-Solver++ 25/1, LPIPS from the npz, SSIM and
     error maps, on `batch` volumes in each of the val, in and out sets (one
     batch each); then run_ood_detection on the CSVs."""
     from ddpm_ood_tpu_torch.diffusion.ddim import ddim_timesteps
@@ -2242,6 +2313,178 @@ def phase_ldm(dev: torch.device, root: Path, batch: int = LDM_BATCH) -> dict:
     return launches
 
 
+# the 3D latent diffusion path at the BraTS ROI (BASELINE.md's 3D LDM sweep,
+# docs/RUNBOOK.md): volumes cropped to --image_roi 160x160x128 and not
+# resized (written at 176x176x136, a margin on every axis for the crop); a
+# VQ-VAE of three 256-channel levels with three residual units each and 2048
+# codes of width 128, so (20, 20, 16, 128) latents; the small UNet in 3D;
+# PLMS 100/16 (7 start points) in 3 lane groups at batch 8. Weights seeded.
+# Level 0 of the UNet's up path normalises 384 and 256 channels over 6400
+# rows, samples over 8 blocks' shared memory in bf16.
+BRATS_VQVAE = dict(LDM_VQVAE, downsample_parameters=[[2, 4, 1, 1]] * 3,
+                   upsample_parameters=[[2, 4, 1, 1, 0]] * 3, num_channels=[256] * 3,
+                   num_res_channels=[256] * 3)
+BRATS_RAW, BRATS_LATENT = (176, 176, 136), (20, 20, 16)
+BRATS_BATCH, BRATS_MODEL = 8, "smoke_brats"
+BRATS_ARGS = ["--spatial_dimension=3", "--model_type=small", "--image_roi=[160,160,128]",
+              "--is_grayscale=1", "--prediction_type=epsilon",
+              "--beta_schedule=scaled_linear_beta", "--beta_start=0.0015",
+              "--beta_end=0.0195", "--b_scale=1.0", "--num_inference_steps=100",
+              "--inference_skip_factor=16", "--recon_groups=3", f"--batch_size={BRATS_BATCH}",
+              "--score_ssim=1"]
+
+
+def _unet_gn_forward(unet, x, t, plain: bool = False):
+    """One UNet forward on the card: (output, the (N, C, G, itemsize, address)
+    of each GroupNorm it ran, launch counts). `plain`: GroupNorm and
+    attention through their plain versions instead of the kernels."""
+    from ddpm_ood_tpu_torch.models import unet as unet_mod
+    from ddpm_ood_tpu_torch.ops.attention import einsum_attention
+    from ddpm_ood_tpu_torch.ops.groupnorm import groupnorm_act_reference
+
+    real = (unet_mod.groupnorm_act, unet_mod.attention)
+    norm = groupnorm_act_reference if plain else real[0]
+    seen = []
+
+    def recorded(x, gamma, beta, num_groups, eps=1e-6, act="none"):
+        seen.append((math.prod(x.shape[1:-1]), x.shape[-1], num_groups, x.element_size(),
+                     x.data_ptr()))
+        return norm(x, gamma, beta, num_groups, eps, act)
+
+    unet_mod.groupnorm_act = recorded
+    if plain:
+        unet_mod.attention = einsum_attention
+    reset_launches()
+    try:
+        with torch.no_grad():
+            out = unet(x, t)
+        torch.cuda.synchronize()
+    finally:
+        unet_mod.groupnorm_act, unet_mod.attention = real
+    return out, seen, read_launches()
+
+
+def _large_per_forward(seen) -> int:
+    """GroupNorms of one forward that the dispatch gives the large-sample kernel."""
+    from ddpm_ood_tpu_torch.ops.groupnorm import kernel_for
+
+    return sum(kernel_for(*shape)[0] == "large" for shape in seen)
+
+
+def phase_ldm_brats(dev: torch.device, root: Path) -> dict:
+    """The scoring CLI on a 3D latent diffusion model at the BraTS ROI
+    geometry (BRATS_ARGS): one UNet forward at the sweep's largest batch
+    through the kernels against the plain versions on the card (fp32), the
+    forward, then the CLI on two batches of the val set and one of each of
+    the in and out sets: finite CSVs, every UNet forward's launches as
+    predicted, val's batch 1 traced by the CLI's --profile_dir (the device's
+    busy and idle shares, each kernel's share of the device time:
+    ``profile_scoring.trace_split``), latent-recons/s of the warm, untraced
+    in and out batches, and CUDA-event spans by part (UNet forwards; encode;
+    decode; metrics tail)."""
+    from ddpm_ood_tpu_torch.diffusion.plms import pndm_start_points, pndm_timesteps
+    from ddpm_ood_tpu_torch.models.unet import make_unet, memory_format, random_init_
+    from ddpm_ood_tpu_torch.profile_scoring import trace_split
+    from ddpm_ood_tpu_torch.recon.sweep import group_t_starts
+    from ddpm_ood_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    brats = root / "brats"
+    rng = np.random.default_rng(9)
+    csvs = {name: _write_volumes(brats, name, n * BRATS_BATCH, ood, rng, BRATS_RAW)
+            for name, n, ood in (("val", 2, False), ("in", 1, False),
+                                 ("Task01_BrainTumour_ood", 1, True))}
+    vq = _ldm_vqvae(0, BRATS_VQVAE)
+    unet = random_init_(make_unet("small", 3, 128, 128), torch.Generator().manual_seed(0)).eval()
+    (brats / "vqvae").mkdir()
+    save_checkpoint(brats / "vqvae" / "checkpoint.pth", vq.state_dict())
+    (brats / "vqvae" / "vqvae_config.json").write_text(json.dumps(BRATS_VQVAE))
+    out = brats / "output"
+    (out / BRATS_MODEL).mkdir(parents=True)
+    save_checkpoint(out / BRATS_MODEL / "checkpoint.pth", unet.state_dict())
+    t_data = time.perf_counter() - t0
+
+    ts = pndm_timesteps(1000, 100)
+    t_starts = pndm_start_points(ts, 16)
+    groups = group_t_starts(ts, t_starts, 3)
+    rows = BRATS_BATCH * max(len(starts) for _, starts in groups)
+    card_unet = unet.to(dev, memory_format=memory_format(3))
+    x = torch.from_numpy(rng.standard_normal((rows, 128) + BRATS_LATENT, dtype=np.float32))
+    x = x.to(dev, memory_format=memory_format(3))
+    t = torch.from_numpy(rng.integers(0, 1000, rows)).to(dev)
+    got, seen32, counts32 = _unet_gn_forward(card_unet, x, t)
+    ref, _, _ = _unet_gn_forward(card_unet, x, t, plain=True)
+    err = ((got - ref).abs().max() / max(1.0, ref.abs().max().item())).item()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        got16, seen16, counts16 = _unet_gn_forward(card_unet, x, t)
+    large = {"fp32": _large_per_forward(seen32), "bf16": _large_per_forward(seen16)}
+    shapes16 = sorted({(n, c) for n, c, *_ in seen16 if n == math.prod(BRATS_LATENT)})
+    log(f"brats: 3D small UNet ({rows}, 128, {BRATS_LATENT}) forward through the kernels vs the "
+        f"plain versions on the card, fp32 (TF32 off): rel_err={err:.3e} tol={FWD_TOL:.0e}; "
+        f"bf16 autocast forward finite={bool(torch.isfinite(got16).all())}; GroupNorms a forward "
+        f"on the large-sample kernel (dispatch): fp32 {large['fp32']}, bf16 {large['bf16']} of "
+        f"{len(seen16)}; level-0 (N, C) {shapes16}")
+    if not (math.isfinite(err) and err <= FWD_TOL and bool(torch.isfinite(got16).all())):
+        raise PhaseError(f"brats: UNet forward through the kernels is {err} off the plain "
+                         "versions")
+    _check_launches(counts32, 1, "brats fp32 forward", bf16=False)
+    for what, counts, n_large, bf16 in (("fp32", counts32, large["fp32"], False),
+                                        ("bf16", counts16, large["bf16"], True)):
+        if counts["groupnorm_act_large"] != n_large:
+            raise PhaseError(f"brats {what} forward: {counts['groupnorm_act_large']} large-sample "
+                             f"GroupNorm launches, the dispatch gives {n_large}")
+    _check_launches(counts16, 1, "brats bf16 forward", bf16=True, large_per_forward=large["bf16"])
+    if large["bf16"] < 1:
+        raise PhaseError("brats: no GroupNorm of the forward takes the large-sample kernel")
+    del card_unet, x, got, ref, got16
+    torch.cuda.empty_cache()
+
+    argv = [f"--output_dir={out}", f"--model_name={BRATS_MODEL}",
+            f"--vqvae_checkpoint={brats / 'vqvae' / 'checkpoint.pth'}",
+            f"--validation_ids={csvs['val']}", f"--in_ids={csvs['in']}",
+            f"--out_ids={csvs['Task01_BrainTumour_ood']}", "--device=cuda", *BRATS_ARGS,
+            f"--profile_dir={brats / 'trace'}"]
+    log("brats: python -m ddpm_ood_tpu_torch.reconstruct " + " ".join(argv))
+    recon, counts, parts, wall, peak = _ldm_cli(argv)
+    evals = sum(p.model_evals for p in recon._programs.values())
+    per_batch = sum(len(s) for s, _ in groups)
+    want = 4 * per_batch  # val's two batches, in's and out's one
+    log(f"brats: {evals} UNet forwards (expected {want}, {len(groups)} lane groups); "
+        f"launches {counts}")
+    if evals != want:
+        raise PhaseError(f"brats: {evals} UNet forwards, expected {want}")
+    _check_launches(counts, evals, "brats scoring CLI", bf16=True, large_per_forward=large["bf16"])
+    for name, n in (("val", 2 * BRATS_BATCH), ("in", BRATS_BATCH), ("Task01", BRATS_BATCH)):
+        _check_csv(recon.out_dir / f"results_{name}.csv", t_starts, n_images=n)
+    # val's batch 1 is traced (the CLI's --profile_dir); in and out run warm
+    # and untraced
+    if recon.profile_path is None or len(recon.batch_times) != 4:
+        raise PhaseError(f"brats: no trace of val's batch 1, or {len(recon.batch_times)} "
+                         "batches, not 4")
+    trace = trace_split(Path(recon.profile_path))
+    if trace["forwards"] != per_batch:
+        raise PhaseError(f"brats: the trace holds {trace['forwards']} forwards' GroupNorms, "
+                         f"expected {per_batch}")
+    n_warm = sum(n for n, _ in recon.batch_times[2:])
+    s_warm = sum(s for _, s in recon.batch_times[2:])
+    split = {k: round(v, 3) for k, v in parts.items()}
+    shares = {k: round(v, 4) for k, v in trace["share_of_device_time"].items() if v}
+    log(f"brats: batches (latent recons, s) = {[(n, round(s, 3)) for n, s in recon.batch_times]}")
+    log(f"brats: {n_warm / s_warm:.3f} latent-recons/s (in and out, warm, untraced); traced "
+        f"val batch 1: {trace['device_ms_per_forward']:.3f} device ms a forward of "
+        f"{trace['traced_wall_ms_per_forward']:.3f} wall ms, idle {trace['idle_share']:.3f}, "
+        f"shares of device time {shares}; CUDA-event spans by part, all four batches {split} "
+        f"({wall:.1f} s CLI wall with set-up, {t_data:.1f} s writing volumes and checkpoints); "
+        f"peak device memory {peak:.2f} GiB; card {CARD}")
+    log(json.dumps({"brats": {"batch": BRATS_BATCH, "latent_recons_per_s": n_warm / s_warm,
+                              "trace": trace, "event_spans_s": parts,
+                              "batch_times": recon.batch_times, "wall_s": wall,
+                              "peak_gib": peak, "forward_rel_err": err,
+                              "large_per_forward": large, "forwards": evals, "card": CARD}}))
+    log(f"brats: phase took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 # the training path: small UNet at full width, 32x32x1, batch 128, 2 epochs
 TRAIN_BATCH, TRAIN_STEPS_PER_EPOCH = 128, 4
 TRAIN_ARGS = ["--model_type=small", "--image_size=32", "--is_grayscale=1",
@@ -2278,15 +2521,18 @@ def reset_launches() -> None:
         if name in TC_COUNTED:
             fn.tc_launches = 0
     _launch_counters()["groupnorm_act"].cluster_launches = 0
+    _launch_counters()["groupnorm_act"].large_launches = 0
 
 
 def read_launches() -> dict:
     """Every launch count; "<name>_tc" the tensor-core launches, and
-    "groupnorm_act_cluster" GroupNorm's launches of the cluster kernel."""
+    "groupnorm_act_cluster" and "groupnorm_act_large" GroupNorm's launches of
+    the cluster and the large-sample kernel."""
     fns = _launch_counters()
     return {**{name: fn.launches for name, fn in fns.items()},
             **{f"{name}_tc": fns[name].tc_launches for name in TC_COUNTED},
-            "groupnorm_act_cluster": fns["groupnorm_act"].cluster_launches}
+            "groupnorm_act_cluster": fns["groupnorm_act"].cluster_launches,
+            "groupnorm_act_large": fns["groupnorm_act"].large_launches}
 
 
 def _step_launches(forwards: int, backwards: int, bf16: bool, remat: tuple = (0, 0)) -> dict:
@@ -2295,7 +2541,7 @@ def _step_launches(forwards: int, backwards: int, bf16: bool, remat: tuple = (0,
     `remat` is ``remat_launches``'s (GroupNorm, flash forward) recomputed per
     backward."""
     gn = GN_PER_FORWARD * forwards + remat[0] * backwards
-    want = {"groupnorm_act": gn, "groupnorm_act_cluster": gn,
+    want = {"groupnorm_act": gn, "groupnorm_act_cluster": gn, "groupnorm_act_large": 0,
             "flash_attention_fwd": ATTN_PER_FORWARD * forwards + remat[1] * backwards,
             "flash_attention_bwd_dkv": ATTN_PER_FORWARD * backwards,
             "flash_attention_bwd_dq": ATTN_PER_FORWARD * backwards,
@@ -2772,13 +3018,13 @@ def phase_train_ldm(dev: torch.device, root: Path) -> dict:
 # with --score_ssim=1 --save_error_maps=1, phase_main's data and weights)
 # with exact host noise and with on-device noise; phase_main's run is the
 # Gaussian one
-# (mode, flags, the splits it scores): exact noise scores the val and the
-# out split (the out preview's name), device noise the val split alone, to
-# keep the script's time
-SIMPLEX_MODES = (("exact", ["--simplex_noise=1", "--run_in=0"], ("val", "checkerboard")),
-                 ("device", ["--simplex_noise=1", "--simplex_noise_mode=device", "--run_in=0",
-                             "--run_out=0"], ("val",)))
-SIMPLEX_PREVIEWS = {"val": "preview_val.npy", "checkerboard": "preview_out_2.npy"}
+# (mode, flags, {split it scores: its preview}): exact noise scores the val
+# split, device noise the out split (an out preview is named by its pass of
+# the run, here the first), one batch each to keep the script's time
+SIMPLEX_MODES = (("exact", ["--simplex_noise=1", "--run_in=0", "--run_out=0"],
+                  {"val": "preview_val.npy"}),
+                 ("device", ["--simplex_noise=1", "--simplex_noise_mode=device", "--run_val=0",
+                             "--run_in=0"], {"checkerboard": "preview_out_1.npy"}))
 DEVICE_NOISE_TOL = 1e-5  # simplex_noise_device planes of ~1, fp32 card vs CPU
 # crash and resume: the headline model on a shorter grid (PLMS 20/2), 2
 # batches of 32; the resumed CSV against an uninterrupted run's, each column
@@ -2942,8 +3188,8 @@ def phase_simplex_resume(dev: torch.device, root: Path, gaussian: dict) -> dict:
         for name in splits:
             _check_csv(recon.out_dir / f"results_{name}.csv", t_starts)
         previews = sorted(p.name for p in recon.out_dir.glob("preview_*.npy"))
-        grid_shape = np.load(recon.out_dir / "preview_val.npy").shape
-        if previews != sorted(SIMPLEX_PREVIEWS[name] for name in splits) or \
+        grid_shape = np.load(recon.out_dir / next(iter(splits.values()))).shape
+        if previews != sorted(splits.values()) or \
                 grid_shape != (2, 8, 32, 32, 1):
             raise PhaseError(f"simplex {mode}: previews {previews} {grid_shape}")
         rates = _rates(recon.batch_times)
@@ -4266,6 +4512,7 @@ def main() -> int:
             with ThreadPoolExecutor(len(LDM3D_RUNS)) as early:
                 ldm3d = start_ldm3d_smokes(early, root)
                 ldm = phase_ldm(dev, root)
+                ldm_brats = phase_ldm_brats(dev, root)
                 phase_vqvae_step(dev, npz)
                 train_ldm = phase_train_ldm(dev, root)
                 train = phase_train(dev)
@@ -4279,7 +4526,8 @@ def main() -> int:
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     paths = {"score": score, "serve": served, "sample": sampled, "samplers": samplers,
-             "simplex": simplex, "quant": quant, "ldm": ldm, "train": train,
+             "simplex": simplex, "quant": quant, "ldm": ldm, "ldm_brats": ldm_brats,
+             "train": train,
              "train_ldm": train_ldm, **remat, "pipelines": pipelines, **ddp}
     kernels = []
     for name, (src, tpu) in KERNELS.items():

@@ -41,8 +41,10 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _IP = ctypes.POINTER(ctypes.c_int)
 # every C entry point's argument types, in order; all return a cudaError_t
 SIGNATURES = {
-    # x, gamma, beta, y, B, HW, C, G, eps, act, dtype, device, stream
-    "ddpm_groupnorm_act": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # x, gamma, beta, y, work, B, HW, C, G, eps, act, dtype, vector bytes, tile rows,
+    # resident, smem bytes, device, stream
+    "ddpm_groupnorm_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # x, gamma, beta, y, B, HW, C, G, eps, act, dtype, cluster, smem bytes, device, stream
     "ddpm_groupnorm_act_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, BH, N, D, scale, device, stream (fp32, CUDA cores)

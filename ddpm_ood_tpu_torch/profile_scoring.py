@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 N_IMAGES, SIZE, BATCH = 96, 32, 32
-GN_PER_FORWARD = 27  # GroupNorm launches a small-UNet forward
+GN_PER_FORWARD = 27  # GroupNorm launches a small-UNet forward, 2D or 3D
 MODEL = "profile_fashionmnist"
 ARGS = ["--model_type=small", f"--image_size={SIZE}", "--is_grayscale=1",
         "--num_inference_steps=20", "--inference_skip_factor=1", f"--batch_size={BATCH}",
@@ -43,7 +43,7 @@ ARGS = ["--model_type=small", f"--image_size={SIZE}", "--is_grayscale=1",
         "--run_in=0", "--run_out=0", "--device=cuda"]
 # device-time shares reported, by a substring of the kernel's name
 KERNELS = ("qconv_s8_kernel", "quant_codes_kernel", "quant_absmax_kernel",
-           "groupnorm_act_cluster_kernel", "flash_fwd_tc_kernel")
+           "groupnorm_act_cluster_kernel", "groupnorm_act_large_kernel", "flash_fwd_tc_kernel")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -69,7 +69,7 @@ def trace_split(path: Path) -> dict:
         end = max(end, b)
     wall = (max(float(e["ts"]) + float(e["dur"]) for e in spans)
             - min(float(e["ts"]) for e in spans))
-    forwards = sum("groupnorm_act_cluster_kernel" in n for *_, n in kernels) / GN_PER_FORWARD
+    forwards = sum("groupnorm_act_" in n for *_, n in kernels) / GN_PER_FORWARD
     shares = {k: sum(b - a for a, b, n in kernels if k in n) / busy for k in KERNELS}
     return {"forwards": forwards, "traced_wall_ms_per_forward": wall / 1e3 / forwards,
             "device_ms_per_forward": busy / 1e3 / forwards, "idle_share": 1.0 - busy / wall,

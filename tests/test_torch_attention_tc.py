@@ -47,6 +47,15 @@ BF16_REL_TOL = 1e-2  # chip_smoke.py ATTN_TOL[bfloat16], relative to the largest
 STREAM = 0xC0FFEE  # stand-in stream handle
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _StandInLibrary:
     """Records each C entry point call; every call returns 0 (cudaSuccess)."""
 
@@ -75,7 +84,7 @@ def lib(monkeypatch):
 
     for fn in (groupnorm_act, attn_mod.flash_attention_fwd, attn_mod.flash_attention_bwd_dkv,
                attn_mod.flash_attention_bwd_dq):
-        for counter in ("launches", "cluster_launches", "tc_launches"):
+        for counter in ("launches", "cluster_launches", "large_launches", "tc_launches"):
             if hasattr(fn, counter):
                 monkeypatch.setattr(fn, counter, getattr(fn, counter))
     return stand_in

@@ -44,6 +44,15 @@ from torch_ddp_worker import deterministic_draw, finish, results, start
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("accum", [1, 2])
 def test_ddp_step_matches_jax_global_batch(ddp, accum):
     want_loss, want_grads, ranks = ddp["jax_loss"], ddp["jax_grads"], ddp["step"]

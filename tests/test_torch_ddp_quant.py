@@ -48,6 +48,15 @@ from torch_ddp_worker import finish, results, start
 BATCH, BATCHES, SKIP, HELD = 2, 3, 5, (2, 1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rows(text: str) -> dict:
     return {(r["filename"], int(r["t"])): r for r in csv.DictReader(io.StringIO(text))}
 

@@ -32,6 +32,15 @@ from torch_ddp_worker import finish, results, start
 MODEL = "mp_fashionmnist"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rows(text: str) -> list:
     return list(csv.DictReader(io.StringIO(text)))
 

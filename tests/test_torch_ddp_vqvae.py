@@ -37,6 +37,15 @@ from torch_ddp_worker import finish, results, start
 BATCH = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ddp_vqvae")

@@ -21,6 +21,15 @@ from ddpm_ood_tpu_torch.diffusion import ddpm, schedules
 SCHED_ARGS = ("scaled_linear_beta", 1000, 0.0015, 0.0195)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("ptype", ["epsilon", "sample", "v_prediction"])
 @pytest.mark.parametrize("t", [0, 1, 37, 500, 999])
 @pytest.mark.parametrize("clip", [True, False])

@@ -45,6 +45,15 @@ VQ_ARGV = ["--spatial_dimension=2", "--image_size=16", "--vqvae_num_res_layers=1
            "--is_grayscale=1", "--n_epochs=1", "--eval_freq=1", "--num_workers=2", "--fsdp=1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def launched(tmp_path_factory):
     """The 2 ranks start with the module; the tests that need no rank run

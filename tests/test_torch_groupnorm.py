@@ -35,6 +35,15 @@ ATOL = 2e-5
 GRAD_ATOL = 3e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(shape, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape).astype(np.float32)

@@ -7,9 +7,10 @@ paths (``chip_smoke.GN_SHAPES``, at the scoring and training batches, bf16
 and fp32) gets a cluster of at most 8 blocks within a block's 227 KB and, with
 a stand-in for the ctypes library (the CPU tests have no card), reaches
 ``ddpm_groupnorm_act_cluster`` with the arguments ``_kernels.SIGNATURES``
-declares. A sample over 8 blocks' shared memory reaches the
-one-block-per-group ``ddpm_groupnorm_act`` and leaves ``cluster_launches``
-where it was.
+declares. A sample over 8 blocks' shared memory, or x off a 16-byte
+boundary, reaches the large-sample kernel's ``ddpm_groupnorm_act`` (which
+replaced the one-block-per-group kernel; tests/test_torch_groupnorm_large.py
+holds its plan and sum order) and leaves ``cluster_launches`` where it was.
 
 Sum order: the CUDA kernel runs only on the card, so ``_emulate_cluster``
 repeats its fp32 sums here in the kernel's order: per channel over each
@@ -39,6 +40,15 @@ from test_torch_attention_tc import STREAM, _assert_signature, lib  # noqa: F401
 ATOL = 2e-5
 BATCHES = (64, 128)  # scoring's UNet batch (K x B of a lane group), training's
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _launch(b, n, c, dtype, act="silu", x=None):
@@ -76,23 +86,32 @@ def test_main_path_shapes_reach_the_cluster_kernel(lib, n, c, dtype, b):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_oversized_sample_takes_the_per_group_kernel(lib, dtype):
+    """The 2D small UNet's level 0 at 64x64: 2 MB a sample in bf16. Its kernel
+    is now the large-sample kernel of csrc/groupnorm.cu."""
     dtype = DTYPES[dtype]
-    (n, c), = chip_smoke.GN_OVERSIZED
+    n, c = 4096, 256
+    assert (64, n, c) in chip_smoke.GN_LARGE
     assert gn_mod.cluster_plan(n, c, 32, torch.finfo(dtype).bits // 8) is None
+    before = gn_mod.groupnorm_act.large_launches
     x, gamma, beta, out, moved = _launch(2, n, c, dtype, act="none")
-    assert moved == (1, 0)
+    assert moved == (1, 0) and gn_mod.groupnorm_act.large_launches == before + 1
     assert [name for name, _ in lib.calls] == ["ddpm_groupnorm_act"]
     args = lib.calls[0][1]
     _assert_signature("ddpm_groupnorm_act", args)
-    assert args == (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), 2, n, c, 32,
-                    1e-6, 0, _kernels.DTYPE_CODES[dtype], 0, STREAM)
+    plan = gn_mod.large_plan(n, c, 32, x.element_size())
+    assert args[:4] == (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr())
+    assert args[5:] == (2, n, c, 32, 1e-6, 0, _kernels.DTYPE_CODES[dtype], 16, plan.rows,
+                        plan.resident, plan.smem, 0, STREAM)
 
 
 def test_x_off_a_16_byte_boundary_takes_the_per_group_kernel(lib):
+    """A shape the cluster kernel takes, at an address it does not: the
+    large-sample kernel on 2-byte loads."""
     x = torch.empty(64 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 128)
     *_, moved = _launch(1, 64, 128, torch.bfloat16, x=x)
     assert moved == (1, 0)
     assert [name for name, _ in lib.calls] == ["ddpm_groupnorm_act"]
+    assert lib.calls[0][1][12] == 2  # vector bytes
 
 
 @pytest.mark.parametrize("n,c,itemsize,want", [

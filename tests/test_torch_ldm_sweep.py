@@ -43,6 +43,7 @@ from ddpm_ood_tpu_torch.losses.lpips import PerceptualLoss
 from ddpm_ood_tpu_torch.models.unet import make_unet, memory_format
 from ddpm_ood_tpu_torch.recon import sweep
 from ddpm_ood_tpu_torch.utils.convert import jax_unet_params_to_state_dict
+from test_torch_lpips import jax_lpips_init
 from test_torch_unet3d import seeded_jax_params_nd
 from test_torch_vqvae import port_vqvae, seeded_vqvae
 
@@ -64,7 +65,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def lpips_npz(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("ldm_lpips") / "lpips.npz")
-    jl.save_lpips_npz(jl.init_lpips_params(jax.random.PRNGKey(0), image_hw=32), path)
+    jl.save_lpips_npz(jax_lpips_init(jax.random.PRNGKey(0)), path)
     return path
 
 

@@ -14,6 +14,7 @@ different orders):
 - padding and weight conversion: exact.
 """
 
+import functools
 import logging
 
 import jax
@@ -27,6 +28,10 @@ from ddpm_ood_tpu_torch.losses import lpips as pl
 from ddpm_ood_tpu_torch.utils.convert import jax_lpips_params_to_state_dict, load_params_npz
 
 TAP_ATOL, DIST_ATOL = 2e-5, 1e-6
+# the JAX package's seeded LPIPS init as one jitted program: bit-equal to the
+# eager init, whose op-by-op compiles take ~12 s the first time in a process
+# (~4 s here); the other LPIPS parity tests import it
+jax_lpips_init = jax.jit(functools.partial(jl.init_lpips_params, image_hw=32))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -41,7 +46,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return jl.init_lpips_params(jax.random.PRNGKey(0), image_hw=32)
+    return jax_lpips_init(jax.random.PRNGKey(0))
 
 
 @pytest.fixture(scope="module")

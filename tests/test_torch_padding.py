@@ -22,6 +22,15 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape,pad", CASES)
 def test_pad_and_unpad_match_jax(shape, pad):
     x = np.random.default_rng(len(shape) + sum(pad)).standard_normal(shape).astype(np.float32)

@@ -34,6 +34,7 @@ from ddpm_ood_tpu_torch.diffusion import plms, schedules
 from ddpm_ood_tpu_torch.models.unet import make_unet
 from ddpm_ood_tpu_torch.recon import sweep
 from ddpm_ood_tpu_torch.utils.convert import jax_unet_params_to_state_dict
+from test_torch_lpips import jax_lpips_init
 from test_torch_unet import seeded_jax_params
 
 TOL = dict(atol=1e-6, rtol=1e-6)
@@ -188,7 +189,7 @@ def test_recon_program_metrics_tail_matches_jax():
 
     unet = jax_make_unet("tiny", 2, 1, 1)
     params = seeded_jax_params(unet, seed=3)
-    lpips_params = jlpips.init_lpips_params(jax.random.PRNGKey(0), image_hw=32)
+    lpips_params = jax_lpips_init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(6)
     images = rng.uniform(size=(2, 16, 16, 1)).astype(np.float32)
 

@@ -38,6 +38,15 @@ jqdot = jax.jit(jquant.qdot)
 jwconv = jax.jit(jquant.wconv, static_argnums=(3, 4, 5))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _static(padding):
     """Explicit padding as a hashable tuple, for a static jit argument."""
     return padding if isinstance(padding, str) else tuple(tuple(p) for p in padding)

@@ -62,6 +62,15 @@ GRID = dict(num_inference_steps=10, inference_skip_factor=4, num_groups=2)
 INT8_GRID = {**GRID, "num_groups": 1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fake_model(x, t):
     return 0.1 * x + 0.01 * (t.astype(jnp.float32) / 1000.0).reshape((-1,) + (1,) * (x.ndim - 1))
 

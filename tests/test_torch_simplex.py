@@ -37,6 +37,15 @@ JAX_STD_ATOL = 2e-6  # against JAX's output, whose fp32 standardisation is off b
 SEEDS = (0, 1, 12345, -987654321, 9999999999, -10000000000)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_the_port_builds_its_own_library():
     lib = _native.library()
     assert _native.LIB_PATH.is_file() and _native.LIB_PATH.parent.name == "_build"

@@ -16,6 +16,15 @@ from ddpm_ood_tpu_torch.ops import ssim
 ATOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (B, *spatial, C): 7x7 and 8x8 clamp the window to 7; 16x16 and 32x32 keep 11
 @pytest.mark.parametrize("shape", [(2, 7, 7, 1), (2, 8, 8, 1), (3, 16, 16, 1), (2, 32, 32, 1),
                                    (2, 32, 32, 3), (2, 12, 12, 12, 1)])

@@ -28,7 +28,6 @@ from test_torch_train_step import (
     assert_tree_close,
     inject_grads,
     jax_state,
-    jax_steps_with_grads,
     make_inputs,
     to_torch,
     torch_step,
@@ -54,14 +53,32 @@ def tiny():
 
 # (grad_accum, batch, microbatches): nominal, and a ragged tail of 6 images
 # that splits into 3 microbatches of 2 under --grad_accum_steps=4
+@pytest.fixture(scope="module")
+def jax_grads(tiny):
+    """JAX's jitted (loss, gradients) under --grad_accum_steps=k on `batch`
+    images of seed 5, each compiled once for the module: the accumulation
+    tests hold the port to them, the warmup test feeds the (2, 4) ones to
+    both packages' updates."""
+    unet, params = tiny
+    cache = {}
+
+    def get(k, batch):
+        if (k, batch) not in cache:
+            images, t, noise = make_inputs(b=batch, seed=5)
+            jstep = JaxTrainStep(sched=jax_make_schedule(*SCHED_ARGS), external_noise=True,
+                                 grad_accum=k)
+            cache[k, batch] = jax.jit(jstep._grads)(jax_state(unet, params),
+                                                    jnp.asarray(images), jnp.asarray(noise),
+                                                    jnp.asarray(t))
+        return cache[k, batch]
+    return get
+
+
 @pytest.mark.parametrize("k,batch,micro", [(2, 4, 2), (4, 6, 3)])
-def test_accumulated_gradients_match_jax(tiny, k, batch, micro):
+def test_accumulated_gradients_match_jax(tiny, jax_grads, k, batch, micro):
     unet, params = tiny
     images, t, noise = make_inputs(b=batch, seed=5)
-    jstep = JaxTrainStep(sched=jax_make_schedule(*SCHED_ARGS), external_noise=True,
-                         grad_accum=k)
-    want_loss, want_grads = jax.jit(jstep._grads)(jax_state(unet, params), jnp.asarray(images),
-                                                   jnp.asarray(noise), jnp.asarray(t))
+    want_loss, want_grads = jax_grads(k, batch)
     step = torch_step(params, grad_accum=k)
     x0, tt, eps = to_torch(images, t, noise)
     loss = step.grads(x0, eps, tt)
@@ -71,21 +88,26 @@ def test_accumulated_gradients_match_jax(tiny, k, batch, micro):
                       what="grad")
 
 
-def test_warmup_first_update_has_lr_zero(tiny):
+def test_warmup_first_update_has_lr_zero(tiny, jax_grads):
+    """Both packages' updates from the same gradients (JAX's of the (2, 4, 2)
+    accumulation case) under a 10-step warmup: the first moves nothing."""
     unet, params = tiny
-    images, t, noise = make_inputs(seed=6)
     sched = jax_make_schedule(*SCHED_ARGS)
-    _, grads = jax.jit(JaxTrainStep(sched=sched, external_noise=True)._grads)(
-        jax_state(unet, params), jnp.asarray(images), jnp.asarray(noise), jnp.asarray(t))
+    _, grads = jax_grads(2, 4)
     step = torch_step(params, lr_warmup_steps=10)
     assert [step.lr_at(c) for c in (0, 1, 5, 10, 11)] == pytest.approx(
         [0.0, 1e-4, 5e-4, 1e-3, 1e-3])
     before = {n: p.detach().clone() for n, p in step.model.named_parameters()}
+    # JAX's jitted update with the loss and backward stubbed out
+    # (``jax_steps_with_grads``), compiled once and stepped from the last state
+    jstep = JaxTrainStep(sched=sched, external_noise=True)
+    jstep._grads = lambda *_: (jnp.zeros((), jnp.float32), grads)
+    update, x = jstep.make_train_step(), jnp.zeros((1, 16, 16, 1))
+    state = jax_state(unet, params, warmup=10)
     for n_updates in (1, 2):
         inject_grads(step, grads)
         step.update()
-        state = jax_steps_with_grads(JaxTrainStep(sched=sched, external_noise=True),
-                                     jax_state(unet, params, warmup=10), grads, n_updates)
+        state, _ = update(state, x, jnp.zeros((1,), jnp.int32), x)
         got = dict(step.model.named_parameters())
         if n_updates == 1:  # lr 0: nothing moves, in either package
             assert all(torch.equal(got[n], before[n]) for n in before)

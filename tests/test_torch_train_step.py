@@ -56,6 +56,26 @@ def tiny():
     return unet, seeded_jax_params(unet, seed=3)
 
 
+@pytest.fixture(scope="module")
+def jax_grads(tiny):
+    """JAX's jitted (loss, gradients) by prediction type on the inputs of
+    seed 1 at b_scale 1.5, each compiled once for the module: the gradient
+    tests hold the port to them, and the Adam test feeds the epsilon ones to
+    both packages' updates."""
+    unet, params = tiny
+    cache = {}
+
+    def get(ptype):
+        if ptype not in cache:
+            images, t, noise = make_inputs(seed=1)
+            jstep = JaxTrainStep(sched=jax_make_schedule(*SCHED_ARGS, prediction_type=ptype),
+                                 b_scale=1.5, external_noise=True)
+            cache[ptype] = jax.jit(jstep._grads)(jax_state(unet, params), jnp.asarray(images),
+                                                 jnp.asarray(noise), jnp.asarray(t))
+        return cache[ptype]
+    return get
+
+
 def make_inputs(b=4, seed=0):
     """(images, t, noise) in the JAX layout (B, H, W, C)."""
     rng = np.random.default_rng(seed)
@@ -95,13 +115,10 @@ def assert_tree_close(got: dict, want_tree, atol=None, what=""):
 
 
 @pytest.mark.parametrize("ptype", ["epsilon", "sample", "v_prediction"])
-def test_loss_and_every_gradient_match_jax(tiny, ptype):
+def test_loss_and_every_gradient_match_jax(tiny, jax_grads, ptype):
     unet, params = tiny
     images, t, noise = make_inputs(seed=1)
-    jstep = JaxTrainStep(sched=jax_make_schedule(*SCHED_ARGS, prediction_type=ptype),
-                         b_scale=1.5, external_noise=True)
-    want_loss, want_grads = jax.jit(jstep._grads)(jax_state(unet, params), jnp.asarray(images),
-                                                   jnp.asarray(noise), jnp.asarray(t))
+    want_loss, want_grads = jax_grads(ptype)
     step = torch_step(params, ptype, b_scale=1.5)
     x0, tt, eps = to_torch(images, t, noise)
     loss = step.grads(x0, eps, tt)
@@ -130,16 +147,15 @@ def jax_steps_with_grads(jstep: JaxTrainStep, state, grads, n: int):
     return state
 
 
-def test_adam_update_and_ema_match_jax(tiny):
+def test_adam_update_and_ema_match_jax(tiny, jax_grads):
     """Adam (optax's defaults) and the EMA after the update, from the same
-    gradients: a weight whose true gradient is 0 (a key bias under softmax)
-    has a gradient of rounding noise, and Adam's first update turns noise into
-    a step of up to lr, so the update is held on identical gradients."""
+    gradients (JAX's of the epsilon case): a weight whose true gradient is 0
+    (a key bias under softmax) has a gradient of rounding noise, and Adam's
+    first update turns noise into a step of up to lr, so the update is held
+    on identical gradients."""
     unet, params = tiny
-    images, t, noise = make_inputs(seed=2)
     sched = jax_make_schedule(*SCHED_ARGS)
-    _, grads = jax.jit(JaxTrainStep(sched=sched, external_noise=True)._grads)(
-        jax_state(unet, params), jnp.asarray(images), jnp.asarray(noise), jnp.asarray(t))
+    _, grads = jax_grads("epsilon")
     state = jax_steps_with_grads(JaxTrainStep(sched=sched, external_noise=True, ema_decay=0.9),
                                  jax_state(unet, params, ema=True), grads, 2)
     step = torch_step(params, ema_decay=0.9)

@@ -3,7 +3,9 @@
 Tiny 2D and 3D VQ-VAEs (channels [8, 8], two stride-2 levels, one residual
 unit a level, 16 codes of width 4: the geometry of tests/test_ldm_3d.py)
 with seeded random params and codebook in the JAX tree, carried into the
-port by ``utils/convert.py:jax_vqvae_params_to_state_dict``.
+port by ``utils/convert.py:jax_vqvae_params_to_state_dict``; and a 3D one of
+three stride-2 levels on 24x24x16 volumes, the proportions of the BraTS ROI
+that is scored unresized (160x160x128 to 20x20x16 latents; here 3x3x2).
 
 Tolerances, fp32 on both sides:
 - encoder output, and decoder output on one quantized input: rtol 1e-5,
@@ -39,6 +41,13 @@ CONFIG = dict(in_channels=1, out_channels=1, num_res_layers=1,
               num_channels=(8, 8), num_res_channels=(8, 8), num_embeddings=16,
               embedding_dim=4, decay=0.99, commitment_cost=0.25, epsilon=1e-5,
               dropout=0.0, ddp_sync=True)
+# three levels, as the BraTS-ROI geometry's VQ-VAE (chip_smoke.BRATS_VQVAE)
+CONFIG_THREE_LEVELS = dict(CONFIG, downsample_parameters=((2, 4, 1, 1),) * 3,
+                           upsample_parameters=((2, 4, 1, 1, 0),) * 3, num_channels=(8, 8, 8),
+                           num_res_channels=(8, 8, 8))
+# the `pair` fixture's cases: (dims, config, image side(s))
+GEOMETRIES = {"2d": (2, CONFIG, (16, 16)), "3d": (3, CONFIG, (16, 16, 16)),
+              "3d_three_levels_roi": (3, CONFIG_THREE_LEVELS, (24, 24, 16))}
 TIE_MARGIN = 1e-4
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -52,12 +61,12 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def seeded_vqvae(dims: int, seed: int = 0, size: int = 16):
+def seeded_vqvae(dims: int, seed: int = 0, size=16, config: dict = CONFIG):
     """(JAX model, params, ema) with seeded fan-in-scaled kernels, small
-    biases and a unit-normal codebook."""
-    model = JaxVQVAE(spatial_dims=dims, **CONFIG)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1,) + (size,) * dims + (1,)))
+    biases and a unit-normal codebook; `size` one side or a tuple of sides."""
+    model = JaxVQVAE(spatial_dims=dims, **config)
+    sides = (size,) * dims if isinstance(size, int) else tuple(size)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1,) + sides + (1,)))
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -73,8 +82,8 @@ def seeded_vqvae(dims: int, seed: int = 0, size: int = 16):
     return model, filled["params"], filled["ema"]
 
 
-def port_vqvae(dims, params, ema) -> VQVAE:
-    model = VQVAE(spatial_dims=dims, **CONFIG)
+def port_vqvae(dims, params, ema, config: dict = CONFIG) -> VQVAE:
+    model = VQVAE(spatial_dims=dims, **config)
     model.load_state_dict(jax_vqvae_params_to_state_dict(params, ema), strict=True)
     return model.to(memory_format=memory_format(dims)).eval()
 
@@ -88,32 +97,40 @@ def from_port(y: torch.Tensor) -> np.ndarray:
     return y.movedim(1, -1).detach().numpy()
 
 
-@pytest.fixture(scope="module", params=[2, 3], ids=["2d", "3d"])
+@pytest.fixture(scope="module", params=list(GEOMETRIES))
 def pair(request):
-    dims = request.param
-    jmodel, params, ema = seeded_vqvae(dims)
-    images = np.random.default_rng(10 + dims).uniform(
-        size=(2,) + (16,) * dims + (1,)).astype(np.float32)
-    return dims, jmodel, {"params": params, "ema": ema}, port_vqvae(dims, params, ema), images
+    """(dims, JAX model, its variables, the port's model, images, config)."""
+    dims, config, sides = GEOMETRIES[request.param]
+    jmodel, params, ema = seeded_vqvae(dims, size=sides, config=config)
+    images = np.random.default_rng(10 + dims if config is CONFIG else 40).uniform(
+        size=(2,) + sides + (1,)).astype(np.float32)
+    return (dims, jmodel, {"params": params, "ema": ema}, port_vqvae(dims, params, ema, config),
+            images, config)
+
+
+def latent_sides(images: np.ndarray, config: dict) -> tuple:
+    """The encoder's latent sides: each image side over 2 a level."""
+    return tuple(s >> len(config["num_channels"]) for s in images.shape[1:-1])
 
 
 def test_encoder_matches_jax(pair):
-    dims, jmodel, variables, model, images = pair
+    dims, jmodel, variables, model, images, config = pair
     want = np.asarray(jmodel.apply(variables, jnp.asarray(images), method=JaxVQVAE.encode))
     with torch.no_grad():
         got = from_port(model.encode(to_port(images)))
-    assert got.shape == (2,) + (4,) * dims + (4,) and np.abs(want).max() > 0.1
+    assert got.shape == (2,) + latent_sides(images, config) + (4,) and np.abs(want).max() > 0.1
     np.testing.assert_allclose(got, want, **FWD_TOL)
 
 
 def test_decoder_matches_jax_on_one_quantized_input(pair):
-    dims, jmodel, variables, model, _ = pair
-    codes = np.random.default_rng(20 + dims).integers(0, 16, size=(2,) + (4,) * dims)
+    dims, jmodel, variables, model, images, config = pair
+    codes = np.random.default_rng(20 + dims).integers(
+        0, 16, size=(2,) + latent_sides(images, config))
     z = np.asarray(variables["ema"]["quantizer"]["embedding"])[codes]
     want = np.asarray(jmodel.apply(variables, jnp.asarray(z), method=JaxVQVAE.decode))
     with torch.no_grad():
         got = from_port(model.decode(to_port(z)))
-    assert got.shape == (2,) + (16,) * dims + (1,)
+    assert got.shape == images.shape
     np.testing.assert_allclose(got, want, **FWD_TOL)
     with torch.no_grad():  # the stage-2 decode re-quantizes codebook vectors to themselves
         staged = from_port(model.decode_stage_2_outputs(to_port(z)))
@@ -131,7 +148,7 @@ def _nearest_two(z: np.ndarray, codebook: np.ndarray):
 
 
 def test_quantizer_indices_match_jax_outside_near_ties(pair):
-    dims, jmodel, variables, model, images = pair
+    dims, jmodel, variables, model, images, _ = pair
     z = np.asarray(jmodel.apply(variables, jnp.asarray(images), method=JaxVQVAE.encode))
     # seeded latents at the encoder's scale, plus the encoder's own output
     z = np.concatenate([z, np.random.default_rng(30 + dims).standard_normal(
@@ -180,7 +197,7 @@ def test_conv_transpose_torch_like_with_output_padding(dims):
 def test_converter_matches_the_jax_export(pair):
     """Key for key and array for array the JAX package's flax_to_torch_vqvae,
     and the port's module takes the keys with strict=True."""
-    _, _, variables, model, _ = pair
+    _, _, variables, model, _, _ = pair
     want = flax_to_torch_vqvae(variables["params"], variables["ema"])
     got = jax_vqvae_params_to_state_dict(variables["params"], variables["ema"])
     assert sorted(got) == sorted(want) == sorted(model.state_dict())
@@ -193,9 +210,9 @@ def test_reference_pth_round_trip(pair, tmp_path):
     an equal model."""
     import json
 
-    dims, _, _, model, images = pair
+    dims, _, _, model, images, config = pair
     save_checkpoint(tmp_path / "checkpoint.pth", model.state_dict(), epoch=5)
-    cfg = dict(CONFIG, spatial_dims=dims)
+    cfg = dict(config, spatial_dims=dims)
     (tmp_path / "vqvae_config.json").write_text(json.dumps(cfg))
     config, state = load_vqvae_checkpoint(tmp_path / "checkpoint.pth")
     assert config == cfg
