@@ -1,0 +1,6 @@
+"""``torch.cuda.max_memory_allocated()`` over the window, in GiB, after
+``reset_peak_memory_stats()`` at its start."""
+
+
+def read(run):
+    return run.peak_window_bytes / 2**30 if run.peak_window_bytes else None
